@@ -1,0 +1,122 @@
+"""JAX generator parameter tree -> the port's (reference-layout) state dict.
+
+The port's own copy of the name mapping in
+``transeditor_tpu/io/torch_export.py::generator_state_dict``; it takes
+the tree as numpy arrays, so no JAX is needed here:
+
+  JAX tree                        state dict
+  ------------------------------- ------------------------------------
+  kernel [in, out]                weight [out, in]              (.T)
+  conv weight [kh, kw, I, O]      weight [1, O, I, kh, kw]
+  stacked mapping [n, in, out]    {prefix}.{i+1}.weight / .bias
+  StyledConv 'bias'               activate.bias
+  ToRGB bias [3]                  bias [1, 3, 1, 1]
+
+plus the buffers the reference registers (``token`` and
+``token_spatial`` identities, ``blur.kernel`` / ``upsample.kernel``,
+``noises.noise_i``), so the result loads into ``Generator`` with
+``strict=True``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from transeditor_tpu_torch.config import ModelConfig
+
+
+def _blur_kernel(scale: int = 1) -> np.ndarray:
+    k = np.array([1.0, 3.0, 3.0, 1.0], np.float32)
+    k = np.outer(k, k)
+    return (k / k.sum() * scale).astype(np.float32)
+
+
+def _lin(sd, prefix, tree):
+    sd[f"{prefix}.weight"] = np.asarray(tree["kernel"], np.float32).T
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = np.asarray(tree["bias"], np.float32)
+
+
+def _modconv(sd, prefix, tree, blur_scale=None):
+    w = np.transpose(np.asarray(tree["weight"], np.float32),
+                     (3, 2, 0, 1))                 # HWIO -> OIHW
+    sd[f"{prefix}.weight"] = w[None]
+    _lin(sd, f"{prefix}.modulation", tree["modulation"])
+    if blur_scale is not None:
+        sd[f"{prefix}.blur.kernel"] = _blur_kernel(blur_scale)
+
+
+def _styled_conv(sd, prefix, tree, upsample=False):
+    _modconv(sd, f"{prefix}.conv", tree["conv"],
+             blur_scale=4 if upsample else None)
+    sd[f"{prefix}.activate.bias"] = np.asarray(tree["bias"], np.float32)
+    nw = np.asarray(tree.get("noise_weight", 0.0), np.float32)
+    sd[f"{prefix}.noise.weight"] = nw.reshape(1)
+
+
+def _to_rgb(sd, prefix, tree, upsample=True):
+    _modconv(sd, f"{prefix}.conv", tree["conv"])
+    sd[f"{prefix}.bias"] = np.asarray(tree["bias"],
+                                      np.float32).reshape(1, 3, 1, 1)
+    if upsample:
+        sd[f"{prefix}.upsample.kernel"] = _blur_kernel(4)
+
+
+def _token_mapping(sd, prefix, tree):
+    ks = np.asarray(tree["kernel"], np.float32)    # [n, in, out]
+    bs = np.asarray(tree["bias"], np.float32)      # [n, out]
+    for i in range(ks.shape[0]):
+        sd[f"{prefix}.{i + 1}.weight"] = ks[i].T
+        sd[f"{prefix}.{i + 1}.bias"] = bs[i]
+
+
+def generator_state_dict_from_jax(params_np: Dict[str, Any],
+                                  cfg: ModelConfig,
+                                  noise_seed: int = 0
+                                  ) -> Dict[str, torch.Tensor]:
+    """JAX Generator param tree (numpy leaves, with or without the
+    top-level ``'params'``) -> the port's state dict of float32 tensors."""
+    p = params_np.get("params", params_np)
+    sd: Dict[str, np.ndarray] = {}
+
+    sd["token"] = np.eye(cfg.token_dim, dtype=np.float32)
+    sd["token_spatial"] = np.eye(16, dtype=np.float32)
+
+    _token_mapping(sd, "style_mapping_network", p["style_mapping"])
+    if cfg.use_spatial_mapping:
+        _token_mapping(sd, "spatial_mapping_network", p["spatial_mapping"])
+
+    if not cfg.no_trans:
+        for i in range(cfg.n_trans):
+            blk = p[f"interact_{i}"]
+            pre = f"interact.{i}"
+            _lin(sd, f"{pre}.atten.q_transform", blk["atten"]["q"])
+            _lin(sd, f"{pre}.atten.k_transform", blk["atten"]["k"])
+            _lin(sd, f"{pre}.atten.v_transform", blk["atten"]["v"])
+            _lin(sd, f"{pre}.atten.proj", blk["atten"]["proj"])
+            _lin(sd, f"{pre}.mlp.0", blk["mlp_0"])
+            _lin(sd, f"{pre}.mlp.2", blk["mlp_1"])
+            if "proj" in blk:
+                _lin(sd, f"{pre}.proj", blk["proj"])
+
+    _lin(sd, "adjust_style", p["adjust_style"])
+
+    _styled_conv(sd, "conv1", p["conv1"])
+    _to_rgb(sd, "to_rgb1", p["to_rgb1"], upsample=False)
+    for idx, i in enumerate(range(3, cfg.log_size + 1)):
+        _styled_conv(sd, f"convs.{2 * idx}", p[f"conv_up_{i}"],
+                     upsample=True)
+        _styled_conv(sd, f"convs.{2 * idx + 1}", p[f"conv_{i}"])
+        _to_rgb(sd, f"to_rgbs.{idx}", p[f"to_rgb_{i}"])
+
+    # noise buffers: layer i lives at resolution 2^((i+5)//2)
+    rng = np.random.RandomState(noise_seed)
+    for i in range(cfg.num_layers):
+        res = 2 ** ((i + 5) // 2)
+        sd[f"noises.noise_{i}"] = rng.randn(1, 1, res, res).astype(
+            np.float32)
+    return {k: torch.from_numpy(np.array(v, np.float32))   # owned copies
+            for k, v in sd.items()}
