@@ -3,26 +3,42 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Phases; any failure exits nonzero before the result lines are printed:
+Phases; any failure exits nonzero before the result lines are printed.
+They run in the order 1, 2a, 3, 2b, 3b, 4: everything timed by the host
+clock comes before the first use of torch.profiler.
 
   1. card: name and power limit (nvidia-smi); build the CUDA kernel from
      transeditor_tpu_torch/csrc/ and print the build seconds;
-  2. kernel vs plain: ``fused_blur4`` against ``fused_blur4_plain`` on
-     the card at the six shapes of a 256px forward and at odd shapes, in
-     float32 (limit 1e-5) and bfloat16 (limit 2 bf16 ulps of the plain
-     result computed in float32, beyond the 1e-5 float32 allowance that
-     matters only next to zero), without epilogue, with scale, and with
-     scale + bias + activation; then CUDA-event times at batch 64 in
-     bfloat16 beside the bound from the bytes moved;
+  2a. kernel vs plain: ``fused_blur4`` against ``fused_blur4_plain`` on
+     the card at the six shapes of a 256px forward at batches 1, 2, 4 and
+     8 (the serving ladder and the generator phase) and at odd shapes
+     (ragged last segment and strip, pad (2, 1), C=20, a misaligned
+     view), in float32 (limit 1e-5) and bfloat16 (limit 2 bf16 ulps of
+     the plain result computed in float32, beyond the 1e-5 float32
+     allowance that matters only next to zero), without epilogue, with
+     scale, with scale + bias + activation, and with a bf16 scale; each
+     case on the path ``plan_tiles`` chose for it; and the wrapper's host
+     time per call (host clock over enqueues at the 9x9 shape);
+  2b. per main-path shape at batch 64 in bfloat16: both paths held
+     against the plain version (2 bf16 ulps: at this batch every block
+     walks several tiles, so the ring runs on across tile boundaries);
+     the kernel's device time per launch (a CUDA graph of back-to-back
+     launches replayed between two events) on the TMA path and on the
+     general path (the first design); the wrapper + kernel time (CUDA
+     events around back-to-back wrapper calls), the plain version and
+     one depthwise F.conv2d, beside the bound from the bytes moved;
   3. generator: the full-width 256px ``ModelConfig()`` with seeded random
-     weights, bf16 at batch 8 (finite, 6 kernel launches per forward);
+     weights, bf16 at batch 8 (finite, 6 kernel launches per forward, all
+     on the TMA path);
      float32 at batch 2 on the card vs the same weights and codes on the
-     CPU (plain path); img/s at batches 1 / 8 / 64; device time by
-     kernel for one forward at batches 1 and 64 (torch.profiler);
+     CPU (plain path); img/s at batches 1 / 8 / 64;
+  3b. device time by kernel for one forward at batches 1 and 64
+     (torch.profiler);
   4. serve (the main path, counted): an ``InferenceEngine`` on the card,
      warmed to batch 8, answers concurrent sample / decode / edit_strip
      requests and one HTTP ``POST /sample`` + ``GET /health``.  The
-     kernel's launch count is set to 0 just before and read just after.
+     kernel's launch counts are set to 0 just before and read just after;
+     every launch must have taken the TMA path.
 
 The last three lines are the card line, the kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -48,8 +64,11 @@ TAPS = tuple((np.asarray([1., 3., 3., 1.]) / 8.0 * 2.0).tolist())
 MAIN_SHAPES = [(9, 512), (17, 512), (33, 512), (65, 512), (129, 256),
                (257, 128)]          # fused_blur4 inputs of a 256px forward
 ODD_CASES = [((2, 17, 17, 64), (1, 1)), ((2, 11, 23, 20), (1, 1)),
-             ((2, 12, 9, 8), (2, 1))]
+             ((2, 12, 9, 8), (2, 1)),
+             ((1, 68, 300, 64), (1, 1))]   # ragged last segment and strip
+CHECK_BATCHES = (1, 2, 4, 8)       # main-path batches held against plain
 TIME_BATCH = 64
+L2_BYTES = 50e6                    # H100 L2
 
 
 class SmokeFailure(RuntimeError):
@@ -91,40 +110,106 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- phase 2
 
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose storage starts one element into
+    its buffer, so its address is not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def hold_to_plain(got: torch.Tensor, want: torch.Tensor, tag: str):
+    """(max abs err, bf16 ulps) of ``got`` against the plain result
+    ``want`` computed in float32; fails beyond 1e-5 in float32, or beyond
+    2 bf16 ulps past the 1e-5 float32 sum-order allowance in bfloat16."""
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    if got.dtype == torch.float32:
+        check(err <= 1e-5, f"{tag}: err {err}")
+        return err, 0.0
+    ulps = ((diff - 1e-5).clamp_min(0) / bf16_ulp(want)).max().item()
+    check(ulps <= 2.0, f"{tag}: {ulps} ulps")
+    return err, ulps
+
+
 def kernel_vs_plain(fb, dev) -> dict:
     g = torch.Generator(dev).manual_seed(0)
-    cases = [((2, h, h, c), (1, 1)) for h, c in MAIN_SHAPES] + ODD_CASES
+    cases = [((b, h, h, c), (1, 1), False)
+             for b in CHECK_BATCHES for h, c in MAIN_SHAPES]
+    cases += [(shape, pad, False) for shape, pad in ODD_CASES]
+    cases += [((2, 17, 17, 64), (1, 1), True)]          # storage offset
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_ulps = 0.0
-    for shape, pad in cases:
+    fb.launches.reset()
+    n = 0
+    for shape, pad, offset in cases:
         b, c = shape[0], shape[-1]
         x32 = torch.randn(shape, generator=g, device=dev)
         scale = torch.rand((b, c), generator=g, device=dev) + 0.5
         bias = torch.randn((c,), generator=g, device=dev)
-        for epi in ({}, {"scale": scale},
-                    {"scale": scale, "bias": bias, "act": True}):
-            want = fb.fused_blur4_plain(x32, TAPS, pad, **epi)
-            got = fb.fused_blur4(x32, TAPS, pad, **epi)
-            e32 = (got - want).abs().max().item()
-            check(e32 <= 1e-5, f"f32 {shape} {sorted(epi)}: err {e32}")
-            xb = x32.to(torch.bfloat16)
-            want = fb.fused_blur4_plain(xb.float(), TAPS, pad, **epi)
-            got = fb.fused_blur4(xb, TAPS, pad, **epi).float()
-            diff = (got - want).abs()
-            # bf16 rounding, plus the f32 sum-order allowance near zero
-            ulps = ((diff - 1e-5).clamp_min(0) / bf16_ulp(want)).max().item()
-            check(ulps <= 2.0, f"bf16 {shape} {sorted(epi)}: {ulps} ulps")
-            err[torch.float32] = max(err[torch.float32], e32)
-            err[torch.bfloat16] = max(err[torch.bfloat16],
-                                      diff.max().item())
-            worst_ulps = max(worst_ulps, ulps)
+        epis = ({}, {"scale": scale},
+                {"scale": scale, "bias": bias, "act": True},
+                {"scale": scale.to(torch.bfloat16), "bias": bias,
+                 "act": True})
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            if offset:
+                x = misaligned(x)
+            want_path = fb.plan_tiles(*shape, dtype, pad,
+                                      x.data_ptr() % 16 == 0).path
+            for epi in epis:
+                before = fb.launches.by_path.get(want_path, 0)
+                got = fb.fused_blur4(x, TAPS, pad, **epi)
+                check(fb.launches.by_path.get(want_path, 0) == before + 1,
+                      f"{shape} {dtype} did not take the {want_path} path")
+                n += 1
+                want = fb.fused_blur4_plain(x.float(), TAPS, pad, **epi)
+                e, ulps = hold_to_plain(
+                    got, want, f"{dtype} {shape} pad {pad} offset {offset} "
+                               f"{sorted(epi)}")
+                err[dtype] = max(err[dtype], e)
+                worst_ulps = max(worst_ulps, ulps)
     torch.cuda.synchronize()
-    print(f"kernel vs plain: {len(cases)} shapes x 3 epilogues x 2 dtypes; "
+    paths = fb.launches.by_path
+    check(sum(paths.values()) == n and paths.get("general", 0) > 0
+          and paths.get("tma", 0) > 0, f"launches by path {paths}")
+    print(f"kernel vs plain: {len(cases)} shapes x 4 epilogues x 2 dtypes; "
           f"max abs err f32 {err[torch.float32]:.3e} (limit 1e-5), "
           f"bf16 {err[torch.bfloat16]:.3e} = {worst_ulps:.3f} ulp "
-          f"(limit 2 ulp)", flush=True)
+          f"(limit 2 ulp); launches by path {paths}", flush=True)
     return {"max_err_f32": err[torch.float32],
             "max_err_bf16": err[torch.bfloat16], "max_bf16_ulps": worst_ulps}
+
+
+def _dev_us(e) -> float:
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0) or 0)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn``: a CUDA graph of ``reps``
+    back-to-back calls, replayed between two events.  Unlike events
+    around the calls themselves, it leaves out the wrapper's host time;
+    it includes the graph's short gaps between kernels."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def kernel_times(fb, dev) -> list:
@@ -144,27 +229,78 @@ def kernel_times(fb, dev) -> list:
                 memory_format=torch.channels_last)
         xc = x.permute(0, 3, 1, 2)
         epi = dict(scale=scale, bias=bias, act=True)
-        ms = time_ms(lambda: fb.fused_blur4(x, TAPS, (1, 1), **epi))
+        plan = fb.plan_tiles(b, h, h, c, x.dtype, (1, 1),
+                             n_sm=fb._sm_count(torch.cuda.current_device()))
+        check(plan.path == "tma", f"{[b, h, h, c]} planned {plan.path}")
+        general = fb.plan_tiles(b, h, h, c, x.dtype, (1, 1), aligned=False)
+        runs = {"tma": lambda: fb.fused_blur4(x, TAPS, (1, 1), **epi),
+                "general": lambda: fb.launch(general, x, TAPS, **epi)}
+        want = fb.fused_blur4_plain(x.float(), TAPS, (1, 1), **epi)
+        err = {}
+        for name, fn in runs.items():
+            err[name] = hold_to_plain(fn(), want,
+                                      f"{name} path bf16 {[b, h, h, c]}")
+        del want
+        dev_ms = {name: device_ms(fn) for name, fn in runs.items()}
+        wrapper = time_ms(lambda: fb.fused_blur4(x, TAPS, (1, 1), **epi))
         plain = time_ms(lambda: fb.fused_blur4_plain(x, TAPS, (1, 1), **epi),
                         reps=5)
         conv = time_ms(lambda: F.conv2d(xc, wdw, padding=1, groups=c))
         ho = h - 1
-        nbytes = (b * h * h * c + b * ho * ho * c) * 2 + b * c * 2 + c * 4
+        in_bytes = b * h * h * c * 2
+        nbytes = in_bytes + b * ho * ho * c * 2 + b * c * 2 + c * 4
         flops = b * ho * ho * c * 20       # 8 FMAs + scale, bias, lrelu
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
-        rows.append({"in": [b, h, h, c], "ms": ms, "plain_ms": plain,
+        ms = dev_ms["tma"]
+        rows.append({"in": [b, h, h, c], "ms": ms,
+                     "general_path_ms": dev_ms["general"],
+                     "max_abs_err": err["tma"][0],
+                     "bf16_ulps": err["tma"][1],
+                     "general_path_ulps": err["general"][1],
+                     "wrapper_ms": wrapper, "plain_ms": plain,
                      "depthwise_conv_ms": conv, "bound_ms": bound,
-                     "bytes": nbytes,
+                     "share_of_bound": bound / ms, "bytes": nbytes,
+                     "input_fits_l2": in_bytes < L2_BYTES,
+                     "plan": {k: getattr(plan, k) for k in (
+                         "cc", "wt", "seg", "stages", "n_tiles",
+                         "grid", "threads", "smem")},
                      "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                                   >= flops / F32_FLOPS_PER_S
                                   else "operations")})
-        print(f"  fused_blur4 bf16 {[b, h, h, c]}: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, depthwise F.conv2d (blur alone) "
-              f"{conv:.4f} ms, bound {bound:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
+        l2 = " (input fits in L2 on repeats)" if in_bytes < L2_BYTES else ""
+        print(f"  fused_blur4 bf16 {[b, h, h, c]}: vs plain "
+              f"{err['tma'][1]:.3f} ulp TMA ({plan.n_tiles} tiles on "
+              f"{plan.grid} blocks), {err['general'][1]:.3f} ulp general; "
+              f"device {ms:.4f} ms TMA, {dev_ms['general']:.4f} ms general "
+              f"path (graph replay); wrapper + kernel {wrapper:.4f} ms; "
+              f"plain {plain:.4f} ms; depthwise F.conv2d (blur alone) "
+              f"{conv:.4f} ms; bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+              f"{bound / ms:.1%} of it{l2}", flush=True)
         del x, xc
     torch.cuda.empty_cache()
     return rows
+
+
+def wrapper_host_us(fb, dev, reps: int = 200) -> float:
+    """Host time per ``fused_blur4`` call: a host clock over ``reps``
+    enqueues at the 9x9 main-path shape (the device keeps up), then a
+    synchronize."""
+    b, (h, c) = TIME_BATCH, MAIN_SHAPES[0]
+    x = torch.randn((b, h, h, c), device=dev, dtype=torch.bfloat16)
+    epi = dict(scale=torch.ones((b, c), device=dev, dtype=torch.bfloat16),
+               bias=torch.zeros((c,), device=dev), act=True)
+    for _ in range(3):
+        fb.fused_blur4(x, TAPS, (1, 1), **epi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fb.fused_blur4(x, TAPS, (1, 1), **epi)
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    print(f"fused_blur4 wrapper host time: {us:.2f} us per call "
+          f"({reps} enqueues, bf16 {[b, h, h, c]})", flush=True)
+    return us
 
 
 # ---------------------------------------------------------------- phase 3
@@ -190,14 +326,15 @@ def generator_phase(fb, dev, card: str, **cfg_kw):
         fb.launches.reset()
         out = g(z.to(dev), p.to(dev))
         torch.cuda.synchronize()
-    n = fb.launches.value
+    n, paths = fb.launches.value, fb.launches.by_path
     check(n == ups, f"fused_blur4 launched {n} times in one forward, "
                     f"not {ups}")
+    check(paths == {"tma": ups}, f"forward launches by path {paths}")
     check(tuple(out.image.shape) == (8, size, size, 3), str(out.image.shape))
     check(out.image.dtype == torch.bfloat16, str(out.image.dtype))
     check(bool(torch.isfinite(out.image.float()).all()), "non-finite image")
     print(f"generator bf16 batch 8: image {tuple(out.image.shape)} finite, "
-          f"fused_blur4 launches per forward {n}", flush=True)
+          f"fused_blur4 launches per forward {n} {paths}", flush=True)
 
     cfg32 = ModelConfig(**cfg_kw)
     z2, p2 = codes(2, dim, seed=1)
@@ -243,20 +380,17 @@ def profile_forward(g, dev, batch: int, top: int = 6) -> dict:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
-
     # kernels only: CPU-side ops also carry the device time they launched
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in events)
-    events.sort(key=dev_us, reverse=True)
-    rows = [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    busy_us = sum(_dev_us(e) for e in events)
+    blur_us = sum(_dev_us(e) for e in events if "fused_blur4" in e.key)
+    events.sort(key=_dev_us, reverse=True)
+    rows = [{"name": e.key[:60], "calls": e.count, "ms": _dev_us(e) / 1e3}
             for e in events[:top]]
     print(f"profile bf16 batch {batch}: device busy {busy_us / 1e3:.3f} ms "
-          f"of {wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.1%})",
-          flush=True)
+          f"of {wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.1%}); "
+          f"fused_blur4 {blur_us / 1e3:.3f} ms", flush=True)
     for r in rows:
         print(f"  {r['ms']:9.3f} ms  x{r['calls']:<4d} {r['name']}",
               flush=True)
@@ -266,7 +400,7 @@ def profile_forward(g, dev, batch: int, top: int = 6) -> dict:
 
 # ---------------------------------------------------------------- phase 4
 
-def serve_phase(fb, dev, g) -> int:
+def serve_phase(fb, dev, g) -> dict:
     import http.client
     from transeditor_tpu_torch.serve import InferenceEngine, make_http_server
 
@@ -312,6 +446,7 @@ def serve_phase(fb, dev, g) -> int:
         thread.join(timeout=30)
     torch.cuda.synchronize()
     launches = fb.launches.value              # ... and ends here
+    paths = fb.launches.by_path
 
     for name, a, n in (("sample(1)", img1, 1), ("sample(3)", img3, 3),
                        ("decode z/p", dec_z, 2), ("decode z+/p+", dec_plus, 3),
@@ -326,14 +461,15 @@ def serve_phase(fb, dev, g) -> int:
                              f"{diff.mean()}")
     check(launches > 0 and launches % ups == 0,
           f"serve run launched fused_blur4 {launches} times")
+    check(paths == {"tma": launches}, f"serve launches by path {paths}")
     check(not thread.is_alive(), "HTTP thread still running")
     print(f"serve: sample(1) {img1.shape}, sample(3) {img3.shape}, "
           f"decode z/p {dec_z.shape}, decode z+/p+ {dec_plus.shape} "
           f"(vs sample: max diff {diff.max()}, mean {diff.mean():.4f} "
           f"levels), edit_strip {strip.shape}, POST /sample "
           f"{http_img.shape}, GET /health {health}; fused_blur4 launches "
-          f"{launches}", flush=True)
-    return launches
+          f"{launches} {paths}", flush=True)
+    return paths
 
 
 def main() -> int:
@@ -359,22 +495,34 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}", flush=True)
 
     errs = kernel_vs_plain(fb, dev)
-    rows = kernel_times(fb, dev)
+    # host-clock measurements first: once torch.profiler has run, the
+    # process keeps paying for its tracing on every launch
+    host_us = wrapper_host_us(fb, dev)
     g, gen = generator_phase(fb, dev, card)
+    rows = kernel_times(fb, dev)
     gen["profile"] = [profile_forward(g, dev, b) for b in (1, 64)]
-    launches = serve_phase(fb, dev, g)
+    paths = serve_phase(fb, dev, g)
 
     kernel = {
         "name": "fused_blur4", "route": "cuda",
         "source": "transeditor_tpu_torch/csrc/fused_blur4.cu",
         "replaces": "transeditor_tpu/ops/pallas_blur.py:131",
-        "launches": launches,
-        "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"]),
+        "launches": sum(paths.values()),
+        "path_launches": paths,
+        "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
+                           *(r["max_abs_err"] for r in rows)),
         "max_err_f32": errs["max_err_f32"],
-        "max_err_bf16": errs["max_err_bf16"],
+        "max_err_bf16": max(errs["max_err_bf16"],
+                            *(r["max_abs_err"] for r in rows)),
+        # device time per launch, TMA path, by CUDA graph replay
         "ms": sum(r["ms"] for r in rows),
+        "general_path_ms": sum(r["general_path_ms"] for r in rows),
+        "wrapper_ms": sum(r["wrapper_ms"] for r in rows),
+        "wrapper_host_us": host_us,
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows),
+        "share_of_bound": sum(r["bound_ms"] for r in rows)
+        / sum(r["ms"] for r in rows),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
         else "operations",
         # no single PyTorch call computes blur + scale + bias + lrelu;

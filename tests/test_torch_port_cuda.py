@@ -55,6 +55,104 @@ def test_kernel_matches_plain(dev, shape, dtype):
         assert bool((err <= 2 * _bf16_ulp(want) + 1e-5).all())
 
 
+MAIN_SHAPES = [(9, 512), (17, 512), (33, 512), (65, 512), (129, 256),
+               (257, 128)]          # fused_blur4 inputs of a 256px forward
+
+
+def _check_against_plain(x, pad=(1, 1), **epi):
+    """One kernel launch on the path ``plan_tiles`` chooses, held against
+    the plain version: f32 at 1e-5, bf16 at 2 ulps beyond 1e-5."""
+    plan = fused_blur.plan_tiles(*x.shape, x.dtype, tuple(pad),
+                                 x.data_ptr() % 16 == 0)
+    before = fused_blur.launches.by_path
+    got = fused_blur.fused_blur4(x, TAPS, pad, **epi)
+    torch.cuda.synchronize()
+    after = fused_blur.launches.by_path
+    assert after.get(plan.path, 0) == before.get(plan.path, 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    want = fused_blur.fused_blur4_plain(x.float(), TAPS, pad, **epi)
+    err = (got.float() - want).abs()
+    if x.dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert bool((err <= 2 * _bf16_ulp(want) + 1e-5).all())
+    return plan
+
+
+def _epilogue(dev, b, c, scale_dtype=torch.float32):
+    g = torch.Generator(dev).manual_seed(1)
+    scale = (torch.rand((b, c), generator=g, device=dev) + 0.5)
+    bias = torch.randn((c,), generator=g, device=dev)
+    return dict(scale=scale.to(scale_dtype), bias=bias, act=True)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("h,c", MAIN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_main_path_shapes_take_tma(dev, batch, h, c, dtype):
+    """Batch 1 and 8 as served; at batch 64 the blocks walk several tiles
+    each, so the ring runs on across tile boundaries."""
+    x = torch.randn((batch, h, h, c), generator=torch.Generator(dev)
+                    .manual_seed(h), device=dev).to(dtype)
+    plan = _check_against_plain(x, **_epilogue(dev, batch, c, dtype))
+    assert plan.path == "tma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_segment_and_strip(dev, dtype):
+    x = torch.randn((1, 68, 300, 64), device=dev).to(dtype)
+    plan = _check_against_plain(x, **_epilogue(dev, 1, 64))
+    assert plan.path == "tma"
+    assert plan.Ho % plan.seg and plan.Wo % plan.wt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_asymmetric_pad(dev, dtype):
+    x = torch.randn((2, 12, 9, 8), device=dev).to(dtype)
+    assert _check_against_plain(x, (2, 1), **_epilogue(dev, 2, 8)).path \
+        == "tma"
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_operand_dtypes(dev, scale_dtype, bias_dtype):
+    x = torch.randn((4, 33, 33, 128), device=dev).to(torch.bfloat16)
+    epi = _epilogue(dev, 4, 128, scale_dtype)
+    epi["bias"] = epi["bias"].to(bias_dtype)
+    _check_against_plain(x, **epi)
+    _check_against_plain(x, scale=epi["scale"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_general_path(dev, dtype):
+    """C=20 in bf16 (40-byte pixel rows) and a view whose storage starts
+    one element into its buffer take the general path."""
+    if dtype == torch.bfloat16:
+        x = torch.randn((2, 11, 23, 20), device=dev).to(dtype)
+        assert _check_against_plain(x, **_epilogue(dev, 2, 20)).path \
+            == "general"
+    buf = torch.randn(2 * 17 * 17 * 64 + 1, device=dev).to(dtype)
+    x = buf[1:].view(2, 17, 17, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert _check_against_plain(x, **_epilogue(dev, 2, 64)).path \
+        == "general"
+
+
+def test_one_launch_per_call(dev):
+    """The wrapper launches the kernel alone: no cast of a bf16 scale."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn((2, 17, 17, 64), device=dev).to(torch.bfloat16)
+    epi = _epilogue(dev, 2, 64, torch.bfloat16)
+    fused_blur.fused_blur4(x, TAPS, **epi)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_blur.fused_blur4(x, TAPS, **epi)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "fused_blur4_tma_kernel" in kernels[0]
+
+
 def test_generator_f32_card_matches_cpu(dev):
     cfg = ModelConfig(size=32, style_dim=64, param_dim=64, max_channels=64,
                       n_trans=2)

@@ -12,18 +12,30 @@ which is exact because it commutes with the per-channel FIR.
 It replaces ``transeditor_tpu/ops/pallas_blur.py::fused_blur4`` (the
 ``pl.pallas_call`` at :131).  The kernel, ``csrc/fused_blur4.cu``,
 is built with ``nvcc`` for ``sm_90a`` at first use (``ops/cuda_build.py``)
-and bound with ``ctypes``; its note gives the bound (memory: ~62 MB per
+and bound with ``ctypes``; its note gives the bound (bytes: ~62 MB per
 256px bf16 image over the six calls) and what the design does about it.
+
+Two paths, both hand-written kernels, chosen per shape by ``plan_tiles``:
+
+- ``"tma"``: a persistent grid whose blocks stream input rows through a
+  shared-memory ring filled by TMA tile loads.  Every shape whose
+  channel row is a multiple of 16 bytes and whose input is 16-byte
+  aligned takes it, the six main-path shapes among them.
+- ``"general"``: one thread per channel vector (or element) and output
+  column, walking 8 rows with plain loads, for the shapes TMA cannot
+  describe (``C * itemsize`` not a multiple of 16, a misaligned view).
 
 ``fused_blur4`` runs the kernel for a CUDA tensor and the plain torch
 version, ``fused_blur4_plain``, only for a CPU tensor.  There is no
-shape gate and no fallback on the card: any C, H, W in float32 or
-bfloat16 goes to the kernel, and anything else raises.  Forward only.
+fallback on the card: any C, H, W in float32 or bfloat16 goes to a
+kernel, and anything else raises.  Forward only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 import threading
 from typing import Sequence
@@ -35,49 +47,200 @@ from transeditor_tpu_torch.ops.precision import conv_precision
 
 _SQRT2 = math.sqrt(2.0)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+# Geometry of the TMA path (see plan_tiles).  On an H100 one block of 256
+# computing threads on each SM ran faster than two, a grid of even rounds
+# faster than a full last round, and a larger ring or wider channel
+# chunks did not pay (PERF.md).
+SM_COUNT = 132               # H100 SXM; the wrapper asks the device
+_CHUNK_BYTES = 128           # channels of one tile: a 128-byte line a pixel
+_MAX_CONSUMERS = 256         # computing threads; one more warp loads
+_RING_BYTES = 48 * 1024      # shared memory of one block's ring, at most
+_MIN_STAGES, _MAX_STAGES = 3, 16
+_CONSUMERS_PER_SM = 256      # persistent grid: blocks an SM, by their threads
+_BOX_MAX = 256               # TMA: each box dim
+_SMEM_LIMIT = 232_448        # bytes of shared memory a block may use
+_SMEM_SM = 233_472           # ... and all blocks of an SM together
 
 
 class LaunchCounter:
-    """Thread-safe count of kernel launches (serving runs forwards on
-    several threads)."""
+    """Thread-safe count of kernel launches, in all and by path (serving
+    runs forwards on several threads)."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._n = 0
+        self._by_path: dict[str, int] = {}
 
-    def add(self) -> None:
+    def add(self, path: str) -> None:
         with self._lock:
-            self._n += 1
+            self._by_path[path] = self._by_path.get(path, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
-            self._n = 0
+            self._by_path = {}
 
     @property
     def value(self) -> int:
-        return self._n
+        return sum(self._by_path.values())
+
+    @property
+    def by_path(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._by_path)
 
 
-launches = LaunchCounter()   # launches of the CUDA kernel, nowhere else
+launches = LaunchCounter()   # launches of the CUDA kernels, nowhere else
+
+
+@dataclasses.dataclass(frozen=True, eq=False)   # hashed by identity: cheap
+class TilePlan:
+    """How one call is cut up.  On the TMA path a tile is (batch b, a
+    segment of ``seg`` output rows, a strip of ``wt`` output columns, a
+    chunk of ``cc`` channels); each of the ring's ``stages`` slots holds
+    one input row of ``wt + 3`` columns.  The general path uses only the
+    shape fields."""
+
+    path: str                     # "tma" or "general"
+    dtype: torch.dtype
+    B: int
+    H: int
+    W: int
+    C: int
+    Ho: int
+    Wo: int
+    p0: int
+    cc: int = 0
+    wt: int = 0
+    seg: int = 0
+    stages: int = 0
+    n_chunk: int = 0
+    n_strip: int = 0
+    n_seg: int = 0
+    n_tiles: int = 0
+    grid: int = 0
+    threads: int = 0
+    smem: int = 0
+
+    def tile(self, i: int) -> tuple[int, int, int, int, int, int]:
+        """(b, oy0, rows out, ox0, columns out, c0) of tile ``i``, in the
+        kernel's order (``decode_tile`` in the .cu)."""
+        chunk = i % self.n_chunk
+        i //= self.n_chunk
+        strip = i % self.n_strip
+        i //= self.n_strip
+        seg = i % self.n_seg
+        b = i // self.n_seg
+        oy0, ox0 = seg * self.seg, strip * self.wt
+        return (b, oy0, min(self.seg, self.Ho - oy0), ox0,
+                min(self.wt, self.Wo - ox0), chunk * self.cc)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=512)
+def plan_tiles(B: int, H: int, W: int, C: int, dtype: torch.dtype,
+               pad: tuple[int, int], aligned: bool = True,
+               n_sm: int = SM_COUNT) -> TilePlan:
+    """Choose the path and the tile and ring geometry for one shape.
+
+    ``aligned``: the input's address is a multiple of 16 bytes.  Cached
+    per shape; the kernel receives the plan's fields as ints.
+    """
+    p0, p1 = pad
+    Ho, Wo = H + p0 + p1 - 3, W + p0 + p1 - 3
+    item = _ITEMSIZE[dtype]
+    shape = dict(dtype=dtype, B=B, H=H, W=W, C=C, Ho=Ho, Wo=Wo, p0=p0)
+    vec = 16 // item
+    if (not aligned or C % vec or B * H * W * C * item >= 1 << 40
+            or max(B, H, W) >= 1 << 31):
+        return TilePlan("general", **shape)
+
+    # 16-byte channel vectors a tile: a 128-byte line, or the largest
+    # divisor of the pixel's vectors below that.
+    nv = C // vec
+    nvec = max(d for d in range(1, _CHUNK_BYTES // 16 + 1) if nv % d == 0)
+    cc = nvec * vec
+    n_chunk = C // cc
+    wt = min(Wo, _MAX_CONSUMERS // nvec, _BOX_MAX - 3)
+    n_strip = _cdiv(Wo, wt)
+    wt = _cdiv(Wo, n_strip)                 # even strips
+    consumers = _cdiv(wt * nvec, 32) * 32
+    per_sm = max(1, _CONSUMERS_PER_SM // consumers)
+
+    # Row segments: the busiest block reads (rounds of tiles) x (rows a
+    # tile + its 3-row halo); take the split that makes that least, the
+    # longest segments among equals.
+    base = B * n_strip * n_chunk
+    blocks = per_sm * n_sm
+    seg = min((_cdiv(Ho, n) for n in range(1, Ho + 1)),
+              key=lambda r: (_cdiv(base * _cdiv(Ho, r), blocks) * (r + 3),
+                             -r))
+    n_seg = _cdiv(Ho, seg)
+
+    slot = _cdiv((wt + 3) * cc * item, 128) * 128
+    ring = min(_RING_BYTES, _SMEM_SM // per_sm - 1024)
+    stages = min(max(ring // slot, _MIN_STAGES), _MAX_STAGES)
+    smem = stages * slot + 16 * stages + 128   # + barriers, + alignment
+    if smem > _SMEM_LIMIT:
+        return TilePlan("general", **shape)
+
+    n_tiles = B * n_seg * n_strip * n_chunk
+    grid = min(n_tiles, per_sm * n_sm)
+    grid = _cdiv(n_tiles, _cdiv(n_tiles, grid))    # even rounds of tiles
+    return TilePlan("tma", cc=cc, wt=wt, seg=seg, stages=stages,
+                    n_chunk=n_chunk, n_strip=n_strip, n_seg=n_seg,
+                    n_tiles=n_tiles, grid=grid, threads=consumers + 32,
+                    smem=smem, **shape)
+
+
+class _CPlan(ctypes.Structure):
+    """``struct Plan`` in csrc/fused_blur4.cu, field for field."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "path", "dtype", "B", "H", "W", "C", "Ho", "Wo", "p0", "cc", "wt",
+        "seg", "stages", "n_chunk", "n_strip", "n_seg", "n_tiles",
+        "grid", "threads", "smem")]
+
+
+@functools.lru_cache(maxsize=512)
+def _c_plan(plan: TilePlan) -> _CPlan:
+    fields = dataclasses.asdict(plan)
+    fields["path"] = 1 if plan.path == "tma" else 0
+    fields["dtype"] = _DTYPE_CODE[plan.dtype]
+    return _CPlan(**{name: fields[name] for name, _ in _CPlan._fields_})
+
+
+_lib: ctypes.CDLL | None = None     # loaded once, with its entry points typed
 
 
 def _library() -> ctypes.CDLL:
-    from transeditor_tpu_torch.ops.cuda_build import load_library
-    lib = load_library("fused_blur4")
-    fn = lib.teb_fused_blur4
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    global _lib
+    if _lib is None:
+        from transeditor_tpu_torch.ops.cuda_build import load_library
+        lib = load_library("fused_blur4")
+        lib.teb_fused_blur4.restype = ctypes.c_int
+        lib.teb_fused_blur4.argtypes = (
+            [ctypes.POINTER(_CPlan)] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
         lib.teb_error_string.restype = ctypes.c_char_p
         lib.teb_error_string.argtypes = [ctypes.c_int]
-    return lib
+        _lib = lib
+    return _lib
 
 
 def build() -> None:
     """Compile and load the kernel library now (it is otherwise built at
     the first CUDA call)."""
     _library()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _out_size(x: torch.Tensor, pad: Sequence[int]) -> tuple[int, int]:
@@ -130,6 +293,46 @@ def fused_blur4_plain(x: torch.Tensor, taps: Sequence[float],
     return y.to(x.dtype).contiguous()
 
 
+def _epilogue_operand(t: torch.Tensor | None):
+    """(tensor the kernel reads, 1 if bfloat16): float32 and bfloat16 go
+    as they are; other types are cast to float32."""
+    if t is None:
+        return None, 0
+    if t.dtype not in _DTYPE_CODE:
+        t = t.float()
+    return t.contiguous(), _DTYPE_CODE[t.dtype]
+
+
+def launch(plan: TilePlan, x: torch.Tensor, taps: Sequence[float],
+           scale: torch.Tensor | None = None,
+           bias: torch.Tensor | None = None,
+           act: bool = False) -> torch.Tensor:
+    """Run ``plan``'s kernel on CUDA tensors that ``fused_blur4`` has
+    checked; allocates only the output.  Exposed so that a caller can
+    time one path against the other at the same shape."""
+    out = torch.empty((plan.B, plan.Ho, plan.Wo, plan.C), dtype=x.dtype,
+                      device=x.device)
+    scale, scale_bf16 = _epilogue_operand(scale)
+    bias, bias_bf16 = _epilogue_operand(bias)
+    t0, t1, t2, t3 = (float(v) for v in taps[::-1])   # flipped: true conv
+    fn = (_lib or _library()).teb_fused_blur4
+    args = (_c_plan(plan), x.data_ptr(), out.data_ptr(),
+            None if scale is None else scale.data_ptr(), scale_bf16,
+            None if bias is None else bias.data_ptr(), bias_bf16,
+            t0, t1, t2, t3, int(bool(act)))
+    index = x.device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("fused_blur4 launch failed: "
+                           + _library().teb_error_string(rc).decode())
+    launches.add(plan.path)
+    return out
+
+
 def fused_blur4(x: torch.Tensor, taps: Sequence[float],
                 pad: Sequence[int] = (1, 1),
                 scale: torch.Tensor | None = None,
@@ -141,7 +344,7 @@ def fused_blur4(x: torch.Tensor, taps: Sequence[float],
     taps: 4 per-axis filter taps (already normalised and gained).
     pad: spatial pad (p0, p1) as in upfirdn2d; out = in + p0 + p1 - 3.
 
-    A CPU tensor takes ``fused_blur4_plain``; a CUDA tensor launches the
+    A CPU tensor takes ``fused_blur4_plain``; a CUDA tensor launches a
     kernel or raises.
     """
     if x.device.type == "cpu":
@@ -155,28 +358,12 @@ def fused_blur4(x: torch.Tensor, taps: Sequence[float],
                         f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fused_blur4 needs a contiguous NHWC tensor")
-    ho, wo = _out_size(x, pad)
+    _out_size(x, pad)
     _check_epilogue(x, scale, bias)
     for name, t in (("scale", scale), ("bias", bias)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     b, h, w, c = x.shape
-    # the kernel reads float32 epilogue vectors: tiny [B,C] / [C] casts
-    scale32 = None if scale is None else scale.float().contiguous()
-    bias32 = None if bias is None else bias.float().contiguous()
-    out = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
-    tf = [float(v) for v in taps[::-1]]               # flipped: true conv
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.teb_fused_blur4(
-            x.data_ptr(), out.data_ptr(),
-            None if scale32 is None else scale32.data_ptr(),
-            None if bias32 is None else bias32.data_ptr(),
-            _DTYPE_CODE[x.dtype], b, h, w, c, ho, wo, int(pad[0]),
-            *tf, int(bool(act)), stream)
-    if rc != 0:
-        raise RuntimeError("fused_blur4 launch failed: "
-                           + lib.teb_error_string(rc).decode())
-    launches.add()
-    return out
+    plan = plan_tiles(b, h, w, c, x.dtype, (int(pad[0]), int(pad[1])),
+                      x.data_ptr() % 16 == 0, _sm_count(x.device.index))
+    return launch(plan, x, taps, scale, bias, act)
