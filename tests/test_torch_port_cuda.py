@@ -166,3 +166,119 @@ def test_generator_f32_card_matches_cpu(dev):
         got = g(z.to(dev), p.to(dev)).image.cpu()
     assert fused_blur.launches.value - before == cfg.log_size - 2
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+# ------------------------------------------------------------ backward
+
+def _grads(fn, x, scale, bias, gy, create_graph=False):
+    """x, scale, bias leaves of the same values; their gradients of
+    <fn(x, scale, bias), gy>."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
+    y = fn(*leaves)
+    return leaves, torch.autograd.grad(y, leaves, gy,
+                                       create_graph=create_graph)
+
+
+def _kernel(x, scale, bias):
+    return fused_blur.fused_blur4(x, TAPS, scale=scale, bias=bias, act=True)
+
+
+def _plain(x, scale, bias):
+    return fused_blur.fused_blur4_plain(x, TAPS, scale=scale, bias=bias,
+                                        act=True)
+
+
+def _close_grad(got, want, dtype, name):
+    """grad_x at 1e-5 (float32) or 2 bf16 ulps; grad_scale and grad_bias,
+    sums over H*W (and B) products, at 1e-5 of their largest magnitude."""
+    err = (got.float() - want.float()).abs()
+    if name != "x":
+        assert err.max().item() <= 1e-5 * want.abs().max().item() + 1e-6, \
+            name
+    elif dtype == torch.float32:
+        assert err.max().item() <= 1e-5, name
+    else:
+        assert bool((err <= 2 * _bf16_ulp(want.float()) + 1e-5).all()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradients_reach_x_scale_bias(dev, dtype):
+    """On the card the up-conv's blur used to return a tensor without a
+    grad_fn, so nothing upstream of it got a gradient."""
+    g = torch.Generator(dev).manual_seed(2)
+    x = torch.randn((2, 33, 33, 128), generator=g, device=dev).to(dtype)
+    scale = (torch.rand((2, 128), generator=g, device=dev) + 0.5).to(dtype)
+    bias = torch.randn((128,), generator=g, device=dev)
+    gy = torch.randn((2, 32, 32, 128), generator=g, device=dev).to(dtype)
+    before = fused_blur.launches.by_role
+    leaves, got = _grads(_kernel, x, scale, bias, gy)
+    y = _kernel(*leaves)
+    assert y.grad_fn is not None
+    y.backward(gy)
+    assert all(t.grad is not None for t in leaves)
+    after = fused_blur.launches.by_role
+    for role in ("forward", "adjoint", "recompute"):
+        assert after.get(role, 0) > before.get(role, 0), role
+    _, want = _grads(_plain, x, scale, bias, gy)
+    for name, a, b in zip(("x", "scale", "bias"), got, want):
+        _close_grad(a, b, dtype, name)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_adjoint_pad22_odd_outputs(dev, misaligned):
+    """The adjoint of the 256px up-conv blur: [B,256,256,128] -> 257x257
+    at pad (2, 2) (TMA boxes start at -2), on both paths."""
+    g = torch.Generator(dev).manual_seed(3)
+    for shape in ((2, 32, 32, 128), (1, 256, 256, 128)):
+        x = torch.randn(shape, generator=g, device=dev)
+        if misaligned:
+            buf = torch.empty(x.numel() + 1, device=dev)
+            x = buf[1:].view(shape).copy_(x)
+        scale = torch.rand((shape[0], shape[-1]), generator=g,
+                           device=dev) + 0.5
+        plan = _check_against_plain(x, (2, 2), scale=scale)
+        assert plan.path == ("general" if misaligned else "tma")
+        assert plan.Ho == shape[1] + 1 and plan.Ho % 2 == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_double_backward_matches_plain(dev, dtype):
+    g = torch.Generator(dev).manual_seed(4)
+    x = torch.randn((2, 17, 17, 64), generator=g, device=dev).to(dtype)
+    scale = (torch.rand((2, 64), generator=g, device=dev) + 0.5).to(dtype)
+    bias = torch.randn((64,), generator=g, device=dev)
+    gy = torch.randn((2, 16, 16, 64), generator=g, device=dev).to(dtype)
+    v = torch.randn(x.shape, generator=g, device=dev)
+    w = torch.randn(scale.shape, generator=g, device=dev)
+    out = {}
+    for name, fn in (("kernel", _kernel), ("plain", _plain)):
+        gyl = gy.clone().requires_grad_()
+        (xl, sl, _), (gx, gs, _) = _grads(fn, x, scale, bias, gyl, True)
+        inner = (gx.float() * v).sum() + (gs.float() * w).sum()
+        out[name] = torch.autograd.grad(inner, [gyl, sl, xl])
+    for name, a, b in zip(("gy", "scale", "x"), out["kernel"], out["plain"]):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = (1e-5 if dtype == torch.float32 else 2 ** -6) \
+            * b.float().abs().max().item() + 1e-5
+        assert err <= tol, (name, err, tol)
+
+
+def test_small_train_step_on_card(dev):
+    from transeditor_tpu_torch.config import TrainConfig
+    from transeditor_tpu_torch.train.gan import init_state, make_train_step
+
+    cfg = ModelConfig(size=32, style_dim=64, param_dim=64, max_channels=64,
+                      n_trans=2)
+    tcfg = TrainConfig(batch_size=4, spatial_regu=True)
+    state = init_state(cfg, tcfg, device=dev)
+    step = make_train_step(cfg, tcfg)
+    rng = torch.Generator(dev).manual_seed(0)
+    real = torch.randint(0, 256, (4, 32, 32, 3), dtype=torch.uint8)
+    fused_blur.launches.reset()
+    state, m = step(state, real, rng, do_d_reg=True, do_g_reg=True,
+                    do_spatial_reg=True)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).item() for v in m.values()), m
+    assert float(m["r1"]) > 0 and float(m["path_length"]) > 0
+    roles = fused_blur.launches.by_role
+    assert roles.get("adjoint", 0) > 0 and roles.get("recompute", 0) > 0

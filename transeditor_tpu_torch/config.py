@@ -1,9 +1,10 @@
-"""Model hyper-parameters for the PyTorch port.
+"""Model and training hyper-parameters for the PyTorch port.
 
-The same dataclass as ``transeditor_tpu/config.py``'s ``ModelConfig``,
-without JAX: the derived invariants (``token_dim``/``n_latent`` 14,
-``num_layers`` 13, the ``channels`` table, ``num_mappings``) are computed
-once here and ``compute_dtype`` returns a ``torch.dtype``.
+The same dataclasses as ``transeditor_tpu/config.py``'s ``ModelConfig``
+and ``TrainConfig``, without JAX: the derived invariants
+(``token_dim``/``n_latent`` 14, ``num_layers`` 13, the ``channels``
+table, ``num_mappings``, ``ema_decay``) are computed once here and
+``compute_dtype`` returns a ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -95,3 +96,31 @@ class ModelConfig:
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
                              f"got {self.dtype!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """GAN training recipe (``transeditor_tpu/config.py``'s
+    ``TrainConfig``; reference train_spatial_query.py:381-391)."""
+
+    total_steps: int = 800_000
+    batch_size: int = 16                 # batch per step
+    lr: float = 0.002
+    r1_gamma: float = 10.0               # --r1
+    d_reg_every: int = 16
+    g_reg_every: int = 4
+    path_regularize: float = 2.0
+    path_batch_shrink: int = 2
+    grad_accum: int = 1                  # microbatches per step (memory knob)
+    spatial_regu: bool = False
+    spatial_path_regularize: float = 2.0
+    regu_space: str = "p+"               # --regu_sapce [sic]
+    ema_halflife_kimg: float = 10.0      # accum = 0.5 ** (32 / (10*1000))
+    sample_every: int = 500
+    checkpoint_every: int = 10_000
+    n_sample: int = 64
+    seed: int = 0
+
+    @property
+    def ema_decay(self) -> float:
+        return 0.5 ** (32.0 / (self.ema_halflife_kimg * 1000.0))

@@ -1,8 +1,9 @@
-"""JAX generator parameter tree -> the port's (reference-layout) state dict.
+"""JAX parameter trees -> the port's (reference-layout) state dicts.
 
 The port's own copy of the name mapping in
-``transeditor_tpu/io/torch_export.py::generator_state_dict``; it takes
-the tree as numpy arrays, so no JAX is needed here:
+``transeditor_tpu/io/torch_export.py`` (``generator_state_dict`` and
+``discriminator_state_dict``); it takes the trees as numpy arrays, so no
+JAX is needed here:
 
   JAX tree                        state dict
   ------------------------------- ------------------------------------
@@ -11,10 +12,13 @@ the tree as numpy arrays, so no JAX is needed here:
   stacked mapping [n, in, out]    {prefix}.{i+1}.weight / .bias
   StyledConv 'bias'               activate.bias
   ToRGB bias [3]                  bias [1, 3, 1, 1]
+  ConvLayer conv weight [kh,kw,I,O] {prefix}.{0|1}.weight [O, I, kh, kw]
+  ConvLayer 'bias'                {prefix}.{1|2}.bias (the activation)
 
 plus the buffers the reference registers (``token`` and
 ``token_spatial`` identities, ``blur.kernel`` / ``upsample.kernel``,
-``noises.noise_i``), so the result loads into ``Generator`` with
+``noises.noise_i``, the discriminator's blur ``kernel``s), so the
+results load into ``Generator`` and ``Discriminator`` with
 ``strict=True``.
 """
 
@@ -119,4 +123,40 @@ def generator_state_dict_from_jax(params_np: Dict[str, Any],
         sd[f"noises.noise_{i}"] = rng.randn(1, 1, res, res).astype(
             np.float32)
     return {k: torch.from_numpy(np.array(v, np.float32))   # owned copies
+            for k, v in sd.items()}
+
+
+def _conv_layer(sd, prefix, tree, downsample=False, activate=True):
+    idx = 0
+    if downsample:
+        sd[f"{prefix}.0.kernel"] = _blur_kernel(1)
+        idx = 1
+    sd[f"{prefix}.{idx}.weight"] = np.transpose(
+        np.asarray(tree["conv"]["weight"], np.float32), (3, 2, 0, 1))
+    if activate and "bias" in tree:
+        sd[f"{prefix}.{idx + 1}.bias"] = np.asarray(tree["bias"], np.float32)
+    elif "bias" in tree.get("conv", {}):
+        sd[f"{prefix}.{idx}.bias"] = np.asarray(tree["conv"]["bias"],
+                                                np.float32)
+
+
+def discriminator_state_dict_from_jax(params_np: Dict[str, Any],
+                                      cfg: ModelConfig
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX Discriminator param tree (numpy leaves, with or without the
+    top-level ``'params'``) -> the port's state dict of float32 tensors."""
+    p = params_np.get("params", params_np)
+    sd: Dict[str, np.ndarray] = {}
+    _conv_layer(sd, "convs.0", p["from_rgb"])
+    for j, i in enumerate(range(cfg.log_size, 2, -1)):
+        pre = f"convs.{j + 1}"
+        blk = p[f"res_{i}"]
+        _conv_layer(sd, f"{pre}.conv1", blk["conv1"])
+        _conv_layer(sd, f"{pre}.conv2", blk["conv2"], downsample=True)
+        _conv_layer(sd, f"{pre}.skip", blk["skip"], downsample=True,
+                    activate=False)
+    _conv_layer(sd, "final_conv", p["final_conv"])
+    _lin(sd, "final_linear.0", p["final_linear_0"])
+    _lin(sd, "final_linear.1", p["final_linear_1"])
+    return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}

@@ -1,0 +1,95 @@
+"""StyleGAN2 discriminator as an nn.Module
+(``transeditor_tpu/models/discriminator.py``).
+
+NHWC throughout.  ``from_rgb`` (1x1), one residual down block per
+resolution from ``size`` to 8, minibatch stddev, a 3x3 conv at 4x4 and
+two linear layers.  Parameter and buffer names are the reference ``d``
+keys (``convs.0`` is from_rgb, ``convs.{j}`` the res blocks,
+``final_conv``, ``final_linear.{0,1}``), so a reference ``d`` state dict
+loads with ``strict=True``.  Every blur here is the plain
+``ops/resample.py::blur`` (shifted slices, cheap to differentiate twice
+for R1): the JAX package computes it in plain jnp.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from transeditor_tpu_torch.config import ModelConfig
+from transeditor_tpu_torch.device import resolve_device
+from transeditor_tpu_torch.nn.layers import ConvLayer, EqualLinear
+
+
+class ResBlock(nn.Module):
+    """Residual down block: two 3x3 convs (the second downsampling) plus
+    a 1x1 downsampling skip, summed and scaled by 1/sqrt(2)."""
+
+    def __init__(self, in_ch: int, out_ch: int, *, dtype: torch.dtype,
+                 rng: torch.Generator | None = None):
+        super().__init__()
+        self.conv1 = ConvLayer(in_ch, in_ch, 3, dtype=dtype, rng=rng)
+        self.conv2 = ConvLayer(in_ch, out_ch, 3, downsample=True, dtype=dtype,
+                               rng=rng)
+        self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True, bias=False,
+                              activate=False, dtype=dtype, rng=rng)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.conv1(x))
+        return (out + self.skip(x)) * (1 / math.sqrt(2))
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
+                     num_features: int = 1) -> torch.Tensor:
+    """Append the cross-sample stddev map as extra channels.  The group
+    is the largest divisor of the batch not above ``group_size``; the
+    variance is biased and taken in float32."""
+    b, h, w, c = x.shape
+    g = min(b, group_size)
+    while b % g:
+        g -= 1
+    y = x.reshape(g, b // g, h, w, num_features,
+                  c // num_features).float()
+    std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
+    std = std.mean(dim=(1, 2, 4))                  # [b//g, num_features]
+    std = std[:, None, None, :].repeat(g, h, w, 1).to(x.dtype)
+    return torch.cat([x, std], dim=-1)
+
+
+class Discriminator(nn.Module):
+    """Built on ``device`` (default "cuda"; raises if CUDA is absent and
+    the CPU was not asked for) with weights drawn from ``seed``.
+    ``forward`` takes NHWC images [B, size, size, 3] and returns logits
+    [B, 1]."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 device: str | torch.device | None = None, seed: int = 0):
+        dev = resolve_device(device)
+        super().__init__()
+        self.cfg = cfg
+        dtype = cfg.compute_dtype
+        rng = torch.Generator().manual_seed(seed)
+        ch = cfg.channels
+
+        convs = [ConvLayer(3, ch[cfg.size], 1, dtype=dtype, rng=rng)]
+        in_ch = ch[cfg.size]
+        for i in range(cfg.log_size, 2, -1):
+            out_ch = ch[2 ** (i - 1)]
+            convs.append(ResBlock(in_ch, out_ch, dtype=dtype, rng=rng))
+            in_ch = out_ch
+        self.convs = nn.Sequential(*convs)
+        self.final_conv = ConvLayer(in_ch + 1, ch[4], 3, dtype=dtype, rng=rng)
+        self.final_linear = nn.Sequential(
+            EqualLinear(ch[4] * 4 * 4, ch[4], activation="fused_lrelu",
+                        dtype=dtype, rng=rng),
+            EqualLinear(ch[4], 1, dtype=dtype, rng=rng))
+        self.to(dev)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        x = self.convs(img.to(self.cfg.compute_dtype))
+        x = self.final_conv(minibatch_stddev(x))
+        # channel-major flatten, as the reference's NCHW view
+        x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+        return self.final_linear(x)

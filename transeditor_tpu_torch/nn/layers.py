@@ -26,7 +26,7 @@ from transeditor_tpu_torch.ops.act import fused_leaky_relu
 from transeditor_tpu_torch.ops.modconv import (modulated_conv2d,
                                                modulated_conv2d_up_fused)
 from transeditor_tpu_torch.ops.precision import conv_precision
-from transeditor_tpu_torch.ops.resample import (_upsample_pads,
+from transeditor_tpu_torch.ops.resample import (_upsample_pads, blur,
                                                 make_resample_kernel,
                                                 upfirdn2d)
 
@@ -168,12 +168,22 @@ class EqualConv2d(nn.Module):
 class Blur(nn.Module):
     """Holds the reference's ``blur.kernel`` buffer (outer(k,k)/sum ·
     factor²).  The fused up-conv takes the same filter as 4 taps by
-    value, so the buffer is carried for checkpoint interop."""
+    value, so there the buffer is carried for checkpoint interop; the
+    discriminator's downsampling ``ConvLayer`` calls it, an FIR blur
+    padded by ``pad``."""
 
-    def __init__(self, kernel_1d: Sequence[int], upsample_factor: int = 1):
+    def __init__(self, kernel_1d: Sequence[int], upsample_factor: int = 1,
+                 pad: tuple[int, int] = (0, 0)):
         super().__init__()
         k = make_resample_kernel(kernel_1d) * upsample_factor ** 2
         self.register_buffer("kernel", torch.from_numpy(k))
+        self.kernel_1d = tuple(kernel_1d)
+        self.upsample_factor = upsample_factor
+        self.pad = tuple(pad)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return blur(x, self.kernel_1d, pad=self.pad,
+                    upsample_factor=self.upsample_factor)
 
 
 class Upsample(nn.Module):
@@ -320,3 +330,37 @@ class ToRGB(nn.Module):
         if skip is not None:
             out = out + self.upsample(skip)
         return out
+
+
+class ConvLayer(nn.Sequential):
+    """Discriminator conv unit: [Blur +] EqualConv2d [+ leaky ReLU]
+    (``transeditor_tpu/nn/layers.py::ConvLayer``).
+
+    Indexed as the reference ``Sequential``: with ``downsample`` the blur
+    is ``0`` (``{prefix}.0.kernel``), then the conv (``.1.weight``, stride
+    2, no padding) and the activation (``.2.bias``); without it the conv
+    is ``0`` and the activation ``1``.  The activation holds the bias;
+    without one (the res blocks' skip) ``bias`` says whether the conv
+    carries it.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
+                 downsample: bool = False,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1),
+                 bias: bool = True, activate: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 rng: torch.Generator | None = None):
+        layers = []
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            layers.append(Blur(blur_kernel, pad=((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_ch, out_ch, kernel_size, stride=stride,
+                                  padding=padding,
+                                  bias=bias and not activate, dtype=dtype,
+                                  rng=rng))
+        if activate:
+            layers.append(FusedLeakyReLU(out_ch))
+        super().__init__(*layers)

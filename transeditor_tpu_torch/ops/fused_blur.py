@@ -28,7 +28,30 @@ Two paths, both hand-written kernels, chosen per shape by ``plan_tiles``:
 ``fused_blur4`` runs the kernel for a CUDA tensor and the plain torch
 version, ``fused_blur4_plain``, only for a CPU tensor.  There is no
 fallback on the card: any C, H, W in float32 or bfloat16 goes to a
-kernel, and anything else raises.  Forward only.
+kernel, and anything else raises.
+
+Gradients, to any order, come from ``_FusedBlur4``, an
+``autograd.Function`` whose backward runs the same kernel.  With
+``g = gy * act'(y)`` (``act'`` is sqrt(2) where ``y >= 0`` and
+0.2 * sqrt(2) elsewhere, taken from ``y`` as a constant):
+
+    grad_x = fused_blur4(g, taps[::-1], pad=(3-p0, 3-p1), scale=s)
+    grad_s = sum_{h,w} g * fused_blur4(x, taps, pad)
+    grad_b = sum_{b,h,w} g
+
+The first is the adjoint (the transposed FIR: flipped taps, the pad
+that maps the output size back to the input size), the second a
+recompute of the blur alone.  Both call ``_FusedBlur4`` themselves and
+the rest is differentiable torch, so the double backward of the path
+regulariser goes through the kernel too (the adjoint of the adjoint is
+the forward).  ``launches`` counts each launch by path and by role:
+``forward``, ``adjoint`` or ``recompute``.
+
+``fused_blur4`` takes the ``Function`` only when grad mode is on and
+an input requires grad; otherwise (serving under ``inference_mode``,
+the discriminator step's ``no_grad`` fakes) it calls the kernel
+directly.  The CPU runs the same backward, with the plain version in
+place of each launch.
 """
 
 from __future__ import annotations
@@ -65,29 +88,50 @@ _SMEM_SM = 233_472           # ... and all blocks of an SM together
 
 
 class LaunchCounter:
-    """Thread-safe count of kernel launches, in all and by path (serving
-    runs forwards on several threads)."""
+    """Thread-safe count of kernel launches, in all, by path and by role
+    (``forward``, ``adjoint``, ``recompute``); serving runs forwards on
+    several threads."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._by_path: dict[str, int] = {}
+        self._counts: dict[tuple[str, str], int] = {}
 
-    def add(self, path: str) -> None:
+    def add(self, path: str, role: str = "forward") -> None:
         with self._lock:
-            self._by_path[path] = self._by_path.get(path, 0) + 1
+            key = (role, path)
+            self._counts[key] = self._counts.get(key, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
-            self._by_path = {}
+            self._counts = {}
+
+    def _sum_by(self, index: int) -> dict[str, int]:
+        with self._lock:
+            out: dict[str, int] = {}
+            for key, n in self._counts.items():
+                out[key[index]] = out.get(key[index], 0) + n
+            return out
 
     @property
     def value(self) -> int:
-        return sum(self._by_path.values())
+        return sum(self.by_path.values())
 
     @property
     def by_path(self) -> dict[str, int]:
+        return self._sum_by(1)
+
+    @property
+    def by_role(self) -> dict[str, int]:
+        return self._sum_by(0)
+
+    @property
+    def by_role_path(self) -> dict[str, dict[str, int]]:
+        """{role: {path: launches}}."""
         with self._lock:
-            return dict(self._by_path)
+            out: dict[str, dict[str, int]] = {}
+            for (role, path), n in self._counts.items():
+                out.setdefault(role, {})[path] = n
+            return out
 
 
 launches = LaunchCounter()   # launches of the CUDA kernels, nowhere else
@@ -306,10 +350,11 @@ def _epilogue_operand(t: torch.Tensor | None):
 def launch(plan: TilePlan, x: torch.Tensor, taps: Sequence[float],
            scale: torch.Tensor | None = None,
            bias: torch.Tensor | None = None,
-           act: bool = False) -> torch.Tensor:
+           act: bool = False, role: str = "forward") -> torch.Tensor:
     """Run ``plan``'s kernel on CUDA tensors that ``fused_blur4`` has
     checked; allocates only the output.  Exposed so that a caller can
-    time one path against the other at the same shape."""
+    time one path against the other at the same shape.  ``role`` only
+    labels the launch in ``launches``."""
     out = torch.empty((plan.B, plan.Ho, plan.Wo, plan.C), dtype=x.dtype,
                       device=x.device)
     scale, scale_bf16 = _epilogue_operand(scale)
@@ -329,8 +374,82 @@ def launch(plan: TilePlan, x: torch.Tensor, taps: Sequence[float],
     if rc != 0:
         raise RuntimeError("fused_blur4 launch failed: "
                            + _library().teb_error_string(rc).decode())
-    launches.add(plan.path)
+    launches.add(plan.path, role)
     return out
+
+
+def _blur(x: torch.Tensor, taps: tuple, pad: tuple[int, int],
+          scale: torch.Tensor | None, bias: torch.Tensor | None, act: bool,
+          role: str) -> torch.Tensor:
+    """One call without autograd: the plain version for a CPU tensor,
+    the kernel (or an error) for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return fused_blur4_plain(x, taps, pad, scale, bias, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_blur4 runs on cuda or cpu, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_blur4 takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fused_blur4 needs a contiguous NHWC tensor")
+    _out_size(x, pad)
+    _check_epilogue(x, scale, bias)
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    b, h, w, c = x.shape
+    plan = plan_tiles(b, h, w, c, x.dtype, pad, x.data_ptr() % 16 == 0,
+                      _sm_count(x.device.index))
+    return launch(plan, x, taps, scale, bias, act, role)
+
+
+def _call(x, taps, pad, scale, bias, act, role):
+    """Through ``_FusedBlur4`` when autograd must record the call, else
+    straight to ``_blur`` (written out: it runs on every serving call)."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad
+            or (scale is not None and scale.requires_grad)
+            or (bias is not None and bias.requires_grad)):
+        return _FusedBlur4.apply(x, scale, bias, taps, pad, act, role)
+    return _blur(x, taps, pad, scale, bias, act, role)
+
+
+class _FusedBlur4(torch.autograd.Function):
+    """``fused_blur4`` with a backward made of ``fused_blur4`` calls (see
+    the module docstring), differentiable again."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, taps, pad, act, role):
+        y = _blur(x, taps, pad, scale, bias, act, role)
+        need_s = ctx.needs_input_grad[1]
+        ctx.save_for_backward(x if need_s else None, y if act else None,
+                              scale)
+        ctx.taps, ctx.pad, ctx.act = taps, pad, act
+        ctx.x_dtype = x.dtype
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        # float32 throughout, each gradient rounded once to its input's
+        # type, as autograd of the plain version does; a no-op in float32
+        x, y, scale = ctx.saved_tensors
+        taps, (p0, p1) = ctx.taps, ctx.pad
+        g = gy.float()
+        if ctx.act:
+            # the activation's slope at y, a constant: lrelu'' = 0
+            g = g * torch.where(y.detach() >= 0, _SQRT2, 0.2 * _SQRT2)
+        grad_x = grad_s = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_x = _call(g.contiguous(), taps[::-1], (3 - p0, 3 - p1),
+                           scale, None, False, "adjoint").to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            blurred = _call(x.float(), taps, (p0, p1), None, None, False,
+                            "recompute")
+            grad_s = (g * blurred).sum(dim=(1, 2)).to(scale.dtype)
+        if ctx.needs_input_grad[2]:
+            grad_b = g.sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
+        return grad_x, grad_s, grad_b, None, None, None, None
 
 
 def fused_blur4(x: torch.Tensor, taps: Sequence[float],
@@ -345,25 +464,10 @@ def fused_blur4(x: torch.Tensor, taps: Sequence[float],
     pad: spatial pad (p0, p1) as in upfirdn2d; out = in + p0 + p1 - 3.
 
     A CPU tensor takes ``fused_blur4_plain``; a CUDA tensor launches a
-    kernel or raises.
+    kernel or raises.  Differentiable to any order in x, scale and bias,
+    by the same kernel.
     """
-    if x.device.type == "cpu":
-        return fused_blur4_plain(x, taps, pad, scale, bias, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_blur4 runs on cuda or cpu, got {x.device}")
     if len(taps) != 4:
         raise ValueError(f"need 4 taps, got {len(taps)}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_blur4 takes float32 or bfloat16, got "
-                        f"{x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("fused_blur4 needs a contiguous NHWC tensor")
-    _out_size(x, pad)
-    _check_epilogue(x, scale, bias)
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t is not None and t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    b, h, w, c = x.shape
-    plan = plan_tiles(b, h, w, c, x.dtype, (int(pad[0]), int(pad[1])),
-                      x.data_ptr() % 16 == 0, _sm_count(x.device.index))
-    return launch(plan, x, taps, scale, bias, act)
+    return _call(x, tuple(taps), (int(pad[0]), int(pad[1])), scale, bias,
+                 act, "forward")

@@ -72,7 +72,14 @@ def modulated_conv2d_up_fused(
     """Upsampling modulated conv: stride-2 transposed conv, then blur ->
     demod -> bias -> leaky ReLU in one ``fused_blur4`` pass (the kernel
     on CUDA, its plain version on the CPU).  Demod commutes with the
-    per-channel FIR, so applying it after the blur is exact."""
+    per-channel FIR, so applying it after the blur is exact.
+
+    When autograd records (training), ``fused_blur4`` goes through its
+    ``autograd.Function``: the backward to the conv output, demod and
+    bias is the same kernel in its adjoint configuration plus a
+    recompute of the blur, differentiable again for the path-length
+    regulariser.  Under ``no_grad`` / ``inference_mode`` it launches the
+    kernel directly."""
     _no_int8(quantize)
     if len(blur_kernel) != 4:
         raise ValueError("the fused up-conv takes a 4-tap blur kernel")

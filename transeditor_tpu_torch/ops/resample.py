@@ -12,8 +12,10 @@ Same semantics as ``transeditor_tpu/ops/resample.py``:
 
 Images are NHWC.  A 2-D kernel is one depthwise ``F.conv2d``
 (``groups=C``) over the stuffed, padded input; 1-D taps take the
-separable path, one depthwise pass per axis.  Everything is ordinary
-autograd, so first and second derivatives come for free.
+separable path, one depthwise pass per axis.  ``blur`` (the
+discriminator's) sums shifted slices instead, because R1 differentiates
+it twice.  Everything is ordinary autograd, so first and second
+derivatives come for free.
 """
 
 from __future__ import annotations
@@ -118,8 +120,25 @@ def downsample_2d(x: torch.Tensor, kernel_1d=(1, 3, 3, 1),
 
 def blur(x: torch.Tensor, kernel_1d=(1, 3, 3, 1), pad=(0, 0),
          upsample_factor: int = 1) -> torch.Tensor:
-    """Plain FIR blur with explicit pad."""
-    kernel = make_resample_kernel(kernel_1d)
-    if upsample_factor > 1:
-        kernel = kernel * (upsample_factor ** 2)
-    return upfirdn2d(x, kernel, up=1, down=1, pad=pad)
+    """Plain FIR blur with explicit pad: the filter outer(k, k) / sum,
+    times ``upsample_factor**2``, as ``upfirdn2d`` with up = down = 1.
+
+    Computed per axis as a sum of shifted slices in float32, rounded once
+    to ``x.dtype``, not as a depthwise ``F.conv2d``: PyTorch's double
+    backward of a grouped convolution loops over the groups, which made
+    R1 through the discriminator's blurs take seconds a step at 256px
+    (``PERF.md``).  The derivatives of slices, of any order, are slices.
+    """
+    k = np.asarray(kernel_1d, np.float64)
+    taps = (k / k.sum() * upsample_factor)[::-1]    # flipped: true conv
+    p0, p1 = pad
+    y = F.pad(x.float(), (0, 0, p0, p1, p0, p1))
+    n = len(taps)
+    for axis in (2, 1):                             # W, then H
+        size = y.shape[axis] - n + 1
+        acc = None
+        for i, t in enumerate(taps.tolist()):
+            term = y.narrow(axis, i, size) * t
+            acc = term if acc is None else acc + term
+        y = acc
+    return y.to(x.dtype)

@@ -1,0 +1,263 @@
+"""Training driver: schedule, logging, sampling, checkpointing
+(``transeditor_tpu/train/loop.py``, on one device).
+
+The lazy-regularisation cadence (R1 every ``d_reg_every`` steps, path
+length every ``g_reg_every``), a fixed grid of ``n_sample`` images from
+g_ema every ``sample_every`` steps, a checkpoint every
+``checkpoint_every`` and scalar logs, around ``make_train_step``.
+
+Unlike the JAX loop's prefetcher, ``DevicePrefetcher`` ends: when the
+data runs out it raises ``StopIteration`` (and again on every later
+call), a loader error is raised to the caller (again on every later
+call) instead of leaving it blocked, and ``train`` closes it in a
+``finally``, so no thread outlives the loop.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import signal
+import threading
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from transeditor_tpu_torch.config import ModelConfig, TrainConfig
+from transeditor_tpu_torch.device import resolve_device
+from transeditor_tpu_torch.io.checkpoint import save_train_state
+from transeditor_tpu_torch.train.gan import (GANTrainState, init_state,
+                                             make_train_step)
+from transeditor_tpu_torch.utils.image import make_grid, save_png
+from transeditor_tpu_torch.utils.sampling import sample_zp
+
+
+class GracefulShutdown:
+    """SIGTERM / SIGINT set a flag the loop polls: it finishes the step
+    in flight, checkpoints the state after it and returns.  A second
+    signal falls through to the previous handler, so a wedged process
+    can still be killed.  Off the main thread no handler can be set and
+    only the flag works."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self.requested = False
+        self._signals = signals
+        self._prev = {}
+
+    def __enter__(self):
+        for s in self._signals:
+            try:
+                self._prev[s] = signal.signal(s, self._handler)
+            except ValueError:               # not the main thread
+                break
+        return self
+
+    def _handler(self, signum, frame):
+        self.requested = True
+        self._restore()
+
+    def _restore(self):
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        self._prev = {}
+
+    def __exit__(self, *exc):
+        self._restore()
+        return False
+
+
+class MetricLogger:
+    """Scalar logs: one JSON line a call to ``<logdir>/metrics.jsonl``
+    (when ``logdir`` is set), and a stdout line every ``log_every``
+    steps."""
+
+    def __init__(self, logdir: Optional[str], log_every: int = 50):
+        self.log_every = log_every
+        self.jsonl = None
+        if logdir:
+            os.makedirs(logdir, exist_ok=True)
+            self.jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
+
+    def log(self, step: int, metrics: dict) -> None:
+        values = {k: float(v) for k, v in metrics.items()}
+        if self.jsonl is not None:
+            self.jsonl.write(json.dumps({"step": step, **values}) + "\n")
+            self.jsonl.flush()
+        if step % self.log_every == 0:
+            msg = "; ".join(f"{k}: {v:.4f}" for k, v in sorted(values.items()))
+            print(f"[{step}] {msg}", flush=True)
+
+    def close(self) -> None:
+        if self.jsonl is not None:
+            self.jsonl.close()
+            self.jsonl = None
+
+
+class _End:
+    """The producer's last item: the exception ``__next__`` raises."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class DevicePrefetcher:
+    """Reads ``data_iter`` on a thread, ``depth`` batches ahead, and
+    copies each batch to ``device``; on CUDA the copy runs on a side
+    stream from pinned memory and the consumer's stream waits for it.
+    Values and order are those of the iterator."""
+
+    def __init__(self, data_iter, device: torch.device, depth: int = 2):
+        self._device = device
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._end: Optional[BaseException] = None
+        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)
+        self._thread = threading.Thread(target=self._work,
+                                        args=(iter(data_iter),), daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Enqueue unless closed; False once closed."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _upload(self, x):
+        t = torch.as_tensor(np.asarray(x))
+        if self._stream is None:
+            return t.to(self._device), None
+        t = t.pin_memory()
+        with torch.cuda.stream(self._stream):
+            t = t.to(self._device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return t, ready
+
+    def _work(self, it) -> None:
+        try:
+            for x in it:
+                if self._stop.is_set() or not self._put(self._upload(x)):
+                    return
+            self._put(_End(StopIteration()))
+        except Exception as e:                   # handed to the consumer
+            self._put(_End(e))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> torch.Tensor:
+        if self._end is None:
+            item = self._q.get()
+            if not isinstance(item, _End):
+                t, ready = item
+                if ready is not None:
+                    stream = torch.cuda.current_stream(self._device)
+                    stream.wait_event(ready)
+                    t.record_stream(stream)
+                return t
+            self._end = item.exc
+        if isinstance(self._end, StopIteration):
+            raise StopIteration
+        raise self._end
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop the thread and wait for it; batches read ahead are
+        dropped."""
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout)
+
+    @property
+    def alive(self) -> bool:
+        return self._thread.is_alive()
+
+
+def train(cfg: ModelConfig, tcfg: TrainConfig,
+          data_iter: Iterator[np.ndarray], out_dir: str = "out",
+          exp_name: str = "default", state: Optional[GANTrainState] = None,
+          start_step: int = 0, max_steps: Optional[int] = None,
+          prefetch: int = 2, device: str | torch.device | None = None,
+          log_every: int = 50) -> GANTrainState:
+    """Train from ``start_step`` to ``tcfg.total_steps`` (or for
+    ``max_steps``) on uint8 NHWC batches from ``data_iter``.
+
+    Runs on ``device`` (default "cuda"; raises without a card unless
+    "cpu").  Writes ``<out_dir>/<exp_name>/log/metrics.jsonl`` (every
+    ``log_every`` steps; each log waits for the step), ``sample/`` PNG
+    grids from g_ema and ``checkpoint/<step>.pt``.  Raises
+    ``StopIteration`` if the data runs out first.  On SIGTERM / SIGINT
+    it checkpoints the state after the step in flight and returns.
+    """
+    dev = resolve_device(device)
+    if state is None:
+        state = init_state(cfg, tcfg, seed=tcfg.seed, device=dev)
+    step_fn = make_train_step(cfg, tcfg, device=dev)
+    rng = torch.Generator(dev)
+
+    run_dir = os.path.join(out_dir, exp_name)
+    sample_dir = os.path.join(run_dir, "sample")
+    ckpt_dir = os.path.join(run_dir, "checkpoint")
+    os.makedirs(sample_dir, exist_ok=True)
+    sample_z, sample_p = sample_zp(
+        torch.Generator(dev).manual_seed(tcfg.seed + 1), tcfg.n_sample,
+        cfg.n_tokens, cfg.style_dim)
+    end = tcfg.total_steps if not max_steps else min(
+        tcfg.total_steps, start_step + max_steps)
+
+    logger = MetricLogger(os.path.join(run_dir, "log"), log_every)
+    fetcher = (DevicePrefetcher(data_iter, dev, prefetch) if prefetch > 0
+               else None)
+    try:
+        t0, imgs_seen = time.perf_counter(), 0
+        with GracefulShutdown() as stop:
+            for i in range(start_step, end):
+                real = (next(fetcher) if fetcher is not None
+                        else torch.as_tensor(np.asarray(next(data_iter))))
+                # the draws of step i depend on (seed, i) alone, so a run
+                # resumed from a checkpoint continues as the whole run
+                rng.manual_seed((tcfg.seed << 32) + i)
+                state, metrics = step_fn(
+                    state, real, rng,
+                    do_d_reg=i % tcfg.d_reg_every == 0,
+                    do_g_reg=i % tcfg.g_reg_every == 0,
+                    do_spatial_reg=(tcfg.spatial_regu
+                                    and i % tcfg.g_reg_every == 0))
+                imgs_seen += real.shape[0]
+                if i % log_every == 0:
+                    values = {k: float(v) for k, v in metrics.items()}
+                    dt = time.perf_counter() - t0
+                    values["imgs_per_sec"] = imgs_seen / max(dt, 1e-9)
+                    logger.log(i, values)
+                    t0, imgs_seen = time.perf_counter(), 0
+                if i % tcfg.sample_every == 0:
+                    with torch.no_grad():
+                        img = state.g_ema(sample_z, sample_p).image
+                    grid = make_grid(img.float().cpu().numpy(),
+                                     nrow=max(1, int(tcfg.n_sample ** 0.5)))
+                    save_png(os.path.join(sample_dir, f"{i:06d}.png"), grid)
+                if i % tcfg.checkpoint_every == 0:
+                    save_train_state(ckpt_dir, i, state)
+                if stop.requested:
+                    # checkpoint i is the state after step i: a resume
+                    # starts at i + 1 with at most this step's work redone
+                    save_train_state(ckpt_dir, i, state)
+                    print(f"[{i}] shutdown signal: checkpointed the state "
+                          f"after step {i}", flush=True)
+                    break
+    finally:
+        if fetcher is not None:
+            fetcher.close()
+        logger.close()
+    return state
