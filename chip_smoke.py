@@ -65,8 +65,33 @@ clock comes before the first use of torch.profiler.
      train_card_vs_cpu): metrics within 1e-4, gradients (Adam's first
      moments, beta1 = 0, and the root of the second moments) within 1e-4
      of each tensor's largest magnitude.
+  6. the command-line training path (a main path, counted), in
+     build/smoke, removed at the end.  Whether libjpeg is on the machine
+     decides the data: with it, the JPEG / LMDB path; without it, that
+     path cannot be built (native/teio.cpp needs libjpeg), an earlier
+     line says so, and the PNG folder is read instead.
+  6a. data: 64 seeded 256px images (and 16 at 1024px) written as PNG
+     with adaptively filtered rows, as libpng and PIL write them; with
+     libjpeg, teio built with g++ (seconds printed), ``cli.prepare_data``
+     to an LMDB, every record against its source (PSNR >= 40 dB) and the
+     ``NativeLMDBLoader``'s img/s (cpu_count - 1 workers); always the PNG
+     folder iterator's img/s (cpu_count - 1 reader threads), at 256px and
+     from the 1024px sources resized on read; batch 16;
+  6b. ``cli.train_gan.main`` in this process on that data at full width
+     (f32, batch 16, R1 every 2, path length every 3) for steps 0-3,
+     then ``--resume`` to step 6: the log continues at 4, every metric
+     finite, launches by role and path all on the TMA path; ms per step
+     by variant and each step's share of time waiting for data;
+  6c. ``multihost.initialize()`` on NCCL with a world of 1 and two
+     R1 + path steps with every collective forced to run (a group of one
+     runs none), through ``all_reduce_grads``, against the same steps
+     without a process group (Adam moments within 1e-5 of each tensor's
+     largest); the all-reduce's ms per step;
+  6d. ``engine_from_checkpoint(state_dir=...)`` on 6b's state (equal to
+     its g_ema) and an HTTP ``POST /sample`` (``jpeg_b64`` with libjpeg,
+     PSNR >= 35 dB against the array answer), counted.
 
-The phases run in the order 1, 2a, 3, 2b, 3b, 4, 5a, 5b.  The last
+The phases run in the order 1, 2a, 3, 2b, 3b, 4, 5a, 5b, 6.  The last
 three lines are the card line, the kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX or of the JAX package.
@@ -76,10 +101,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -907,6 +935,483 @@ def train_card_vs_cpu(fb, dev) -> dict:
     return {"metrics": metrics, "grad_errors": errs}
 
 
+# ---------------------------------------------------------------- phase 6
+
+N_IMAGES = 64                      # the dataset phase 6 prepares and reads
+N_SOURCE, SOURCE_SIZE = 16, 1024   # FFHQ-size sources, resized to 256 on read
+LOADER_BATCHES, LOADER_WARM = 20, 2
+SOURCE_BATCHES, SOURCE_WARM = 3, 1
+
+
+def libjpeg_present() -> bool:
+    """Whether ``native/teio.cpp`` can be built here: g++ compiles and
+    links a file that includes ``jpeglib.h`` with ``-ljpeg``."""
+    src = "#include <cstdio>\n#include <jpeglib.h>\nint main() { " \
+          "jpeg_compress_struct c; jpeg_std_error(nullptr); (void)c; }\n"
+    with tempfile.TemporaryDirectory() as d:
+        proc = subprocess.run(["g++", "-x", "c++", "-", "-o",
+                               os.path.join(d, "probe"), "-ljpeg"],
+                              input=src, capture_output=True, text=True)
+    return proc.returncode == 0
+
+
+def smooth_images(n: int, size: int, seed: int = 0) -> np.ndarray:
+    """Seeded smooth RGB images away from 0 and 255 (JPEG at quality 95
+    keeps them ~45 dB from the source)."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    out = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
+        f = rng.uniform(0.5, 3.0, (3, 2))
+        ph = rng.uniform(0, 2 * np.pi, (3, 2))
+        img = [128 + 45 * np.sin(2 * np.pi * f[c, 0] * x + ph[c, 0])
+               + 35 * np.cos(2 * np.pi * f[c, 1] * y + ph[c, 1])
+               for c in range(3)]
+        img = np.stack(img, -1) + rng.uniform(-2, 2, (size, size, 3))
+        out[i] = np.clip(img, 0, 255).round().astype(np.uint8)
+    return out
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def png_row_filters(paths) -> list:
+    """Rows by PNG filter type (none, sub, up, average, paeth) over
+    files of one IDAT chunk, as ``save_png`` writes them."""
+    import zlib
+    counts = np.zeros(5, np.int64)
+    for path in paths:
+        data = pathlib.Path(path).read_bytes()
+        w, h = int.from_bytes(data[16:20], "big"), \
+            int.from_bytes(data[20:24], "big")
+        rows = np.frombuffer(zlib.decompress(data[41:-12]), np.uint8)
+        counts += np.bincount(rows.reshape(h, 1 + 3 * w)[:, 0], minlength=5)
+    return counts.tolist()
+
+
+def loader_rate(loader, batch: int, size: int, batches: int,
+                warm: int) -> float:
+    """img/s of ``loader`` over ``batches`` batches after ``warm``; the
+    loader is closed."""
+    try:
+        for _ in range(warm):
+            next(loader)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            b = next(loader)
+        dt = time.perf_counter() - t0
+    finally:
+        loader.close()
+    check(b.shape == (batch, size, size, 3) and b.dtype == np.uint8,
+          f"loader batch {b.shape} {b.dtype}")
+    return batches * batch / dt
+
+
+def data_phase(root: pathlib.Path, size: int, batch: int,
+               with_jpeg: bool) -> dict:
+    """6a: the dataset.  Seeded PNGs, their rows filtered as libpng and
+    PIL filter them (``save_png``'s adaptive choice), so the reader
+    unfilters every row as it would a real dataset's.  With libjpeg:
+    ``cli.prepare_data`` -> LMDB, every record held against its source
+    (PSNR >= 40 dB), and the native loader's img/s.  Always: the PNG
+    folder iterator's img/s (cpu_count - 1 reader threads), at 256px
+    and from 1024px sources (FFHQ's size) resized on read."""
+    from transeditor_tpu_torch.data.dataset import (ImageFolderSource,
+                                                    make_train_iterator)
+    from transeditor_tpu_torch.utils.image import save_png
+
+    pngs, big = root / "pngs", root / "pngs_1024"
+    pngs.mkdir(parents=True)
+    big.mkdir()
+    imgs = smooth_images(N_IMAGES, size)
+    for i, img in enumerate(imgs):
+        save_png(str(pngs / f"{i:05d}.png"), img)
+    for i, img in enumerate(smooth_images(N_SOURCE, SOURCE_SIZE, seed=1)):
+        save_png(str(big / f"{i:05d}.png"), img)
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    out = {"images": N_IMAGES, "size": size, "batch": batch,
+           "workers": workers,
+           "row_filters": png_row_filters(sorted(pngs.iterdir())),
+           "row_filters_1024": png_row_filters(sorted(big.iterdir()))}
+    print(f"data: PNG rows by filter type (none, sub, up, average, paeth): "
+          f"{out['row_filters']} in the {N_IMAGES} {size}px files, "
+          f"{out['row_filters_1024']} in the {N_SOURCE} {SOURCE_SIZE}px",
+          flush=True)
+    if with_jpeg:
+        from transeditor_tpu_torch.cli import prepare_data
+        from transeditor_tpu_torch.data import native
+
+        t0 = time.time()
+        native.load_library()
+        out["teio_build_s"] = time.time() - t0
+        print(f"built {native.library_path().name} with g++ in "
+              f"{out['teio_build_s']:.1f} s", flush=True)
+        lmdb = root / "lmdb"
+        t0 = time.time()
+        n = prepare_data.main(["--in_dir", str(pngs), "--out", str(lmdb),
+                               "--size", str(size)])
+        out["prepare_s"] = time.time() - t0
+        check(n == N_IMAGES, f"prepare_data wrote {n} images")
+        src = native.NativeLMDBSource(str(lmdb))
+        check(len(src) == N_IMAGES, f"LMDB length {len(src)}")
+        out["worst_psnr_db"] = min(psnr(src.get(i, size), imgs[i])
+                                   for i in range(N_IMAGES))
+        src.db.close()
+        check(out["worst_psnr_db"] >= 40.0,
+              f"LMDB record vs source: {out['worst_psnr_db']:.2f} dB")
+        out["lmdb_img_per_s"] = loader_rate(
+            native.NativeLMDBLoader(str(lmdb), batch, size, as_uint8=True,
+                                    workers=workers),
+            batch, size, LOADER_BATCHES, LOADER_WARM)
+        print(f"data: prepare_data {out['prepare_s']:.2f} s, records vs "
+              f"source worst {out['worst_psnr_db']:.2f} dB (limit 40); "
+              f"NativeLMDBLoader, {workers} workers: "
+              f"{out['lmdb_img_per_s']:.1f} img/s at batch {batch}",
+              flush=True)
+        out["path"], out["data"] = str(lmdb), "lmdb"
+    else:
+        out["path"], out["data"] = str(pngs), "png_folder"
+
+    t0 = time.time()
+    ImageFolderSource(str(pngs)).get(0, size)      # builds image_io
+    out["image_io_build_s"] = time.time() - t0
+    for key, folder, batches, warm, src in (
+            ("folder_img_per_s", pngs, LOADER_BATCHES, LOADER_WARM,
+             f"{size}px"),
+            ("folder_1024_img_per_s", big, SOURCE_BATCHES, SOURCE_WARM,
+             f"{SOURCE_SIZE}px sources resized to {size}")):
+        out[key] = loader_rate(
+            make_train_iterator(ImageFolderSource(str(folder)), batch, size,
+                                normalize=False),
+            batch, size, batches, warm)
+        print(f"data: make_train_iterator over ImageFolderSource ({src} "
+              f"PNGs), {workers} reader threads: {out[key]:.1f} img/s at "
+              f"batch {batch} over {batches} batches after {warm}",
+              flush=True)
+    out["loader_img_per_s"] = out.get("lmdb_img_per_s",
+                                      out["folder_img_per_s"])
+    return out
+
+
+def _variant(do_d_reg: bool, do_g_reg: bool, do_spatial_reg: bool) -> str:
+    return {v: k for k, v in VARIANTS.items()}[
+        (bool(do_d_reg), bool(do_g_reg), bool(do_spatial_reg))]
+
+
+def cli_train_phase(fb, dev, root: pathlib.Path, data: dict,
+                    model_argv: list) -> dict:
+    """6b: ``cli.train_gan.main`` in this process, steps 0-3 (R1 every 2,
+    path length every 3: r1+path, plain, r1, path), then ``--resume`` to
+    step 6; counted by role and path.  Each step is timed by the host
+    clock between two synchronisations (a wrapper around the loop's
+    step)."""
+    from transeditor_tpu_torch.cli import train_gan
+    from transeditor_tpu_torch.train import loop
+
+    out_dir = root / "runs"
+    argv = [data["path"], "--out_dir", str(out_dir), "--exp_name", "cli",
+            "--batch", str(TRAIN_BATCH), "--d_reg_every", "2",
+            "--g_reg_every", "3", "--n_sample", "16", "--log_every", "1",
+            *(["--lmdb"] if data["data"] == "lmdb" else []), *model_argv]
+    timed = []
+    make_step = loop.make_train_step
+
+    def timed_make(cfg, tcfg, device=None):
+        step = make_step(cfg, tcfg, device=device)
+
+        def run(state, real, rng, do_d_reg=False, do_g_reg=False,
+                do_spatial_reg=False, draws=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = step(state, real, rng, do_d_reg=do_d_reg,
+                       do_g_reg=do_g_reg, do_spatial_reg=do_spatial_reg,
+                       draws=draws)
+            torch.cuda.synchronize()
+            timed.append((_variant(do_d_reg, do_g_reg, do_spatial_reg),
+                          (time.perf_counter() - t) * 1e3))
+            return got
+        return run
+
+    loop.make_train_step = timed_make
+    try:
+        torch.cuda.synchronize()
+        fb.launches.reset()                  # the main path starts here
+        t0 = time.perf_counter()
+        state = train_gan.main([*argv, "--iter", "4"])
+        check(state.step == 4, f"first run ended at step {state.step}")
+        state = train_gan.main([*argv, "--iter", "6", "--resume",
+                                str(out_dir / "cli" / "checkpoint")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fb.launches.by_role_path     # ... and ends here
+    finally:
+        loop.make_train_step = make_step
+    check(state.step == 6, f"resumed run ended at step {state.step}")
+
+    log = out_dir / "cli" / "log" / "metrics.jsonl"
+    lines = [json.loads(s) for s in log.read_text().splitlines()]
+    check([r["step"] for r in lines] == list(range(6)),
+          f"logged steps {[r['step'] for r in lines]}")
+    for r in lines:
+        check(all(np.isfinite(v) for v in r.values()), f"step {r}")
+        i = r["step"]
+        check((r["r1"] > 0) == (i % 2 == 0), f"r1 at step {i}: {r['r1']}")
+        check((r["path_length"] > 0) == (i % 3 == 0),
+              f"path length at step {i}: {r['path_length']}")
+    paths = {p for by in counts.values() for p in by}
+    check(paths == {"tma"}, f"CLI launches by role and path {counts}")
+    check(all(counts.get(r) for r in ("forward", "adjoint", "recompute")),
+          f"CLI launches by role {counts}")
+    by_variant: dict = {}
+    for name, ms in timed:
+        by_variant.setdefault(name, []).append(ms)
+    waits = [r["data_wait_share"] for r in lines]
+    print(f"cli train: {data['data']} data, {len(timed)} steps through "
+          f"cli.train_gan.main (4, then --resume to 6) in {wall:.2f} s; "
+          f"logged steps {[r['step'] for r in lines]}, all finite; "
+          f"fused_blur4 launches {counts}", flush=True)
+    for i, (name, ms) in enumerate(timed):
+        print(f"  step {i} ({name}): {ms:.1f} ms; data wait "
+              f"{waits[i]:.2%} of the logged interval", flush=True)
+    return {"launches": counts, "wall_s": wall, "step_ms": timed,
+            "ms_by_variant": by_variant, "data_wait_share": waits,
+            "state_dir": str(out_dir / "cli" / "checkpoint"),
+            "losses": lines}
+
+
+def data_parallel_phase(dev, **cfg_kw) -> dict:
+    """6c: two R1 + path steps through ``multihost.initialize()`` on NCCL
+    (world 1) with every collective forced on (``all_reduce_grads``, the
+    discriminator's cross-process stddev, the global path means), against
+    the same two steps with no process group, from the same state and
+    draws.  At lr 0 (see
+    ``train_card_vs_cpu``) with cuDNN deterministic, so each Adam moment
+    holds one phase's gradient: a wrong scale or a lost gradient shows
+    there.  Moments within 1e-5 of each tensor's largest magnitude (1e-8
+    / 1e-16 for the gradients that are 0 in exact arithmetic)."""
+    import torch.distributed as dist
+    from transeditor_tpu_torch.config import ModelConfig, TrainConfig
+    from transeditor_tpu_torch.parallel import multihost
+    from transeditor_tpu_torch.train import gan
+
+    print("data parallel: one card cannot hold a 2-rank NCCL group (NCCL "
+          "refuses two ranks on one device); the multi-rank semantics are "
+          "held on the CPU on gloo by tests/test_torch_port_multihost.py",
+          flush=True)
+    cfg = ModelConfig(**cfg_kw)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, lr=0.0)
+    g = torch.Generator().manual_seed(11)
+    pb = TRAIN_BATCH // tcfg.path_batch_shrink
+
+    def zp(b):
+        return [torch.randn((b, cfg.n_tokens, cfg.style_dim), generator=g)
+                for _ in "zp"]
+
+    def noise(b):
+        return torch.randn((b, cfg.size, cfg.size, 3), generator=g) \
+            / cfg.size
+    draws = [{"d": zp(TRAIN_BATCH), "g": zp(TRAIN_BATCH),
+              "path": [*zp(pb), noise(pb)],
+              "spatial": [*zp(pb), noise(pb)]} for _ in range(2)]
+    reals = [torch.from_numpy(b) for b in
+             synthetic_batches(2, TRAIN_BATCH, cfg.size, seed=12)]
+
+    def two_steps():
+        state = gan.init_state(cfg, tcfg, seed=0, device=dev)
+        step = gan.make_train_step(cfg, tcfg, device=dev)
+        for k in range(2):
+            state, m = step(state, reals[k], torch.Generator(dev)
+                            .manual_seed(k), do_d_reg=True, do_g_reg=True,
+                            draws=draws[k])
+        torch.cuda.synchronize()
+        return state, m
+
+    reduce_ms = []
+    reduce_grads = gan.all_reduce_grads
+    multi_process = multihost.multi_process
+
+    def timed_reduce(grads):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = reduce_grads(grads)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ref, m_ref = two_steps()
+        os.environ.update(env)
+        check(multihost.initialize(dev), "multihost.initialize() joined "
+                                         "no process group")
+        check(dist.get_backend() == backend
+              and multihost.process_count() == 1,
+              f"process group {dist.get_backend()} of "
+              f"{multihost.process_count()}")
+        check(not multihost.multi_process(), "a group of one runs "
+                                             "collectives")
+        # the library runs no collective in a group of one; here they
+        # are made to run, so that NCCL's all-reduces (the gradients',
+        # and the discriminator's stddev and the path means through
+        # all_reduce_sum) are held to the identity
+        multihost.multi_process = lambda: True
+        gan.all_reduce_grads = timed_reduce
+        run, m_run = two_steps()
+    finally:
+        multihost.multi_process = multi_process
+        gan.all_reduce_grads = reduce_grads
+        multihost.shutdown()
+        torch.backends.cudnn.deterministic = False
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    worst = (0.0, "every tensor")
+    for tag, a_mod, b_mod, a_opt, b_opt in (
+            ("G", run.g, ref.g, run.opt_g, ref.opt_g),
+            ("D", run.d, ref.d, run.opt_d, ref.opt_d)):
+        for (name, pa), pb_ in zip(a_mod.named_parameters(),
+                                   b_mod.parameters()):
+            pairs = [("param", pa, pb_, 0.0)] + [
+                (key, a_opt.state[pa][key], b_opt.state[pb_][key], floor)
+                for key, floor in (("exp_avg", 1e-8),
+                                   ("exp_avg_sq", 1e-16))]
+            for key, a, b, floor in pairs:
+                err = (a - b).abs().max().item()
+                tol = 1e-5 * b.abs().max().item() + floor
+                check(err <= tol, f"{tag} {name} {key}: {err} > {tol}")
+                rel = err / max(b.abs().max().item(), 1e-30)
+                if rel > worst[0]:
+                    worst = (rel, f"{tag} {name} {key}")
+    for k in m_ref:
+        check(abs(float(m_run[k]) - float(m_ref[k]))
+              <= 1e-5 * abs(float(m_ref[k])) + 1e-7, f"metric {k}")
+    calls = len(reduce_ms) // 2
+    print(f"data parallel ({backend}, world 1, collectives forced on): 2 "
+          f"R1 + path steps through all_reduce_grads ({calls} reductions a "
+          f"step) and the cross-process stddev equal the steps "
+          f"without a process group: worst {worst[0]:.2e} of the tensor's "
+          f"largest ({worst[1]}); all-reduce {sum(reduce_ms) / 2:.2f} ms a "
+          f"step", flush=True)
+    return {"all_reduce_ms_per_step": sum(reduce_ms) / 2,
+            "reductions_per_step": calls, "worst_rel": worst[0],
+            "worst_at": worst[1], "all_reduce_ms": reduce_ms}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_state_phase(fb, dev, state_dir: str, with_jpeg: bool,
+                      **cfg_kw) -> dict:
+    """6d: ``engine_from_checkpoint(state_dir=...)`` on 6b's state: its
+    generator equals that state's g_ema; then HTTP ``POST /sample`` (with
+    ``"format": "jpeg_b64"`` where libjpeg exists, held against the
+    array answer for the same codes at 35 dB), counted."""
+    import base64
+    import http.client
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.io.checkpoint import (checkpoint_steps,
+                                                     load_train_state_generator)
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.serve import (engine_from_checkpoint,
+                                             make_http_server)
+
+    cfg = ModelConfig(**cfg_kw)
+    eng = engine_from_checkpoint(cfg, state_dir=state_dir, device=dev)
+    step = checkpoint_steps(state_dir)[-1]
+    weights, got_step = load_train_state_generator(state_dir)
+    check(got_step == step, f"served step {got_step}, latest {step}")
+    served = eng.gen.state_dict()
+    check(served.keys() == weights.keys() and all(
+        torch.equal(served[k].cpu(), weights[k]) for k in weights),
+        "the engine's weights are not the state's g_ema")
+    direct = Generator(cfg, device=dev).eval()
+    direct.load_state_dict(weights, strict=True)
+    z, p = (t.to(dev) for t in codes(4, cfg.style_dim, seed=6))
+    # cuDNN held to one deterministic algorithm a shape, as in 6c, so two
+    # modules with equal weights run the same arithmetic
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with torch.inference_mode():
+            served_img = eng.gen(z, p).image
+            diff = (served_img - direct(z, p).image).abs().max().item()
+            again = (served_img - eng.gen(z, p).image).abs().max().item()
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    print(f"serve from train state: engine vs a module holding the state's "
+          f"g_ema {diff:.3e}, engine vs itself {again:.3e} (cuDNN "
+          f"deterministic, max abs)", flush=True)
+    check(diff <= 1e-6, f"engine vs the state's g_ema: {diff}")
+
+    server = make_http_server(eng, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          server.server_address[1],
+                                          timeout=120)
+        req = {"n": 2, **({"format": "jpeg_b64", "quality": 95}
+                          if with_jpeg else {})}
+        conn.request("POST", "/sample", json.dumps(req))
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        check(resp.status == 200, f"POST /sample: HTTP {resp.status}")
+        conn.request("POST", "/decode", json.dumps(
+            {"z": out["z_plus"], "p": out["p_plus"]}))
+        arrays = np.asarray(json.loads(conn.getresponse().read())["images"],
+                            np.uint8)
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    torch.cuda.synchronize()
+    paths = fb.launches.by_path               # ... and ends here
+    check(not thread.is_alive(), "HTTP thread still running")
+    check(arrays.shape == (2, cfg.size, cfg.size, 3), str(arrays.shape))
+    check(paths == {"tma": fb.launches.value} and fb.launches.value > 0,
+          f"serve-state launches by path {paths}")
+    res = {"step": step, "engine_vs_state_max_abs": diff,
+           "engine_vs_itself_max_abs": again, "launches": paths}
+    if with_jpeg:
+        from transeditor_tpu_torch.data.native import decode_jpeg
+        imgs = [decode_jpeg(base64.b64decode(b)) for b in out["images"]]
+        res["jpeg_psnr_db"] = min(psnr(a, b) for a, b in zip(imgs, arrays))
+        check(res["jpeg_psnr_db"] >= 35.0,
+              f"jpeg_b64 vs array answer {res['jpeg_psnr_db']:.2f} dB")
+        what = (f"POST /sample jpeg_b64 vs the array answer for its codes: "
+                f"worst {res['jpeg_psnr_db']:.2f} dB (limit 35)")
+    else:
+        sampled = np.asarray(out["images"], np.uint8)
+        mean = np.abs(sampled.astype(int) - arrays.astype(int)).mean()
+        check(mean < 1.0, f"sample vs decode of its codes: {mean}")
+        what = ("POST /sample (arrays; jpeg_b64 not run: no libjpeg here) "
+                f"vs decode of its codes: mean diff {mean:.4f} levels")
+    print(f"serve from train state: step {step}, weights equal to the "
+          f"state's g_ema, forward vs a module holding them (cuDNN "
+          f"deterministic) max abs {diff:.2e} (limit 1e-6); {what}; "
+          f"fused_blur4 launches {paths}",
+          flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -950,6 +1455,26 @@ def main() -> int:
     trained["card_vs_cpu"] = train_card_vs_cpu(fb, dev)
     train_counts = trained["variants"]   # per step, by role and path
 
+    with_jpeg = libjpeg_present()
+    if not with_jpeg:
+        print("phase 6: the JPEG / LMDB path (native/teio.cpp: "
+              "prepare_data, NativeLMDBLoader, jpeg_b64 answers) is NOT run "
+              "on this machine: libjpeg (jpeglib.h, -ljpeg) is absent, so "
+              "teio cannot be built; phase 6 trains from the PNG folder "
+              "(ImageFolderSource) instead", flush=True)
+    try:
+        cli = {"data": data_phase(out_root / "data", 256, TRAIN_BATCH,
+                                  with_jpeg)}
+        cli["train"] = cli_train_phase(fb, dev, out_root, cli["data"], [])
+        cli["data_parallel"] = data_parallel_phase(dev)
+        cli["serve_state"] = serve_state_phase(
+            fb, dev, cli["train"]["state_dir"], with_jpeg)
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    serve_paths = dict(paths)
+    for k, n in cli["serve_state"]["launches"].items():
+        serve_paths[k] = serve_paths.get(k, 0) + n
+
     def total(by_role_path):
         return sum(n for by in by_role_path.values() for n in by.values())
 
@@ -960,10 +1485,14 @@ def main() -> int:
         "name": "fused_blur4", "route": "cuda",
         "source": "transeditor_tpu_torch/csrc/fused_blur4.cu",
         "replaces": "transeditor_tpu/ops/pallas_blur.py:131",
-        # the two main paths, each counted from 0: serving and training
-        "launches": sum(paths.values()) + total(trained["main_launches"]),
-        "path_launches": paths,
+        # the main paths, each counted from 0: serving (phase 4),
+        # training (5b), the CLI's training (6b), serving its state (6d)
+        "launches": sum(serve_paths.values()) + total(trained["main_launches"])
+        + total(cli["train"]["launches"]),
+        "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
+        "cli_train_launches": cli["train"]["launches"],
+        "serve_state_launches": cli["serve_state"]["launches"],
         "launches_per_train_step": {k: v["launches"]
                                     for k, v in train_counts.items()},
         "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
@@ -1006,6 +1535,7 @@ def main() -> int:
     }
     print(json.dumps({"generator": gen}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
+    print(json.dumps({"cli": cli}), flush=True)
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s",
           flush=True)
     print(f"card: {card}", flush=True)

@@ -282,3 +282,89 @@ def test_small_train_step_on_card(dev):
     assert float(m["r1"]) > 0 and float(m["path_length"]) > 0
     roles = fused_blur.launches.by_role
     assert roles.get("adjoint", 0) > 0 and roles.get("recompute", 0) > 0
+
+
+# ------------------------------------------- the CLI training path's pieces
+
+def test_nccl_group_of_one_reduces_to_the_identity(dev, monkeypatch):
+    import socket
+    import torch.distributed as dist
+    from transeditor_tpu_torch.parallel import data_parallel, multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    assert multihost.initialize(dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        g = torch.Generator(dev).manual_seed(5)
+        grads = [torch.randn((300, 7), generator=g, device=dev),
+                 torch.randn((5,), generator=g, device=dev).bfloat16(),
+                 torch.randn((2, 3), generator=g, device=dev)]
+        # a group of one runs no collective ...
+        assert not multihost.multi_process()
+        assert data_parallel.all_reduce_grads(grads) is grads
+        # ... and NCCL's, made to run, are the identity
+        monkeypatch.setattr(multihost, "multi_process", lambda: True)
+        got = data_parallel.all_reduce_grads(grads)
+        for a, b in zip(got, grads):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        x = torch.arange(6.0, device=dev, requires_grad=True)
+        y = data_parallel.all_reduce_sum(x * x)
+        gx, = torch.autograd.grad(y.sum(), x)
+        assert torch.equal(gx, 2 * x.detach())
+        assert multihost.reduce_loss_dict({"a": torch.tensor(2.0,
+                                                             device=dev)}) \
+            == {"a": 2.0}
+    finally:
+        multihost.shutdown()
+
+
+def test_cli_trains_and_resumes_on_card(dev, tmp_path):
+    import json
+    from transeditor_tpu_torch.cli import train_gan
+    from transeditor_tpu_torch.utils.image import save_png
+
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    rng = np.random.RandomState(0)
+    for i in range(8):
+        save_png(str(imgs / f"{i}.png"),
+                 rng.randint(0, 256, (32, 32, 3)).astype(np.uint8))
+    argv = [str(imgs), "--size", "32", "--num_trans", "1", "--batch", "4",
+            "--d_reg_every", "2", "--g_reg_every", "2", "--n_sample", "4",
+            "--log_every", "1", "--out_dir", str(tmp_path / "out"),
+            "--exp_name", "r"]
+    fused_blur.launches.reset()
+    assert train_gan.main([*argv, "--iter", "2"]).step == 2
+    state = train_gan.main([*argv, "--iter", "3", "--resume",
+                            str(tmp_path / "out" / "r" / "checkpoint")])
+    torch.cuda.synchronize()
+    assert state.g.to_rgbs[0].conv.weight.is_cuda
+    log = (tmp_path / "out" / "r" / "log" / "metrics.jsonl").read_text()
+    assert [json.loads(s)["step"] for s in log.splitlines()] == [0, 1, 2]
+    roles = fused_blur.launches.by_role_path
+    assert {p for by in roles.values() for p in by} == {"tma"}
+    assert all(roles.get(r) for r in ("forward", "adjoint", "recompute"))
+
+
+def test_engine_serves_a_train_state_on_card(dev, tmp_path):
+    from transeditor_tpu_torch.config import TrainConfig
+    from transeditor_tpu_torch.io.checkpoint import save_train_state
+    from transeditor_tpu_torch.serve import engine_from_checkpoint
+    from transeditor_tpu_torch.train.gan import init_state
+
+    cfg = ModelConfig(size=32, style_dim=64, param_dim=64, max_channels=64,
+                      n_trans=2)
+    state = init_state(cfg, TrainConfig(batch_size=2), seed=3, device=dev)
+    save_train_state(str(tmp_path), 0, state)
+    eng = engine_from_checkpoint(cfg, state_dir=str(tmp_path), device=dev)
+    g = torch.Generator(dev).manual_seed(1)
+    z = torch.randn((2, 16, 64), generator=g, device=dev)
+    with torch.inference_mode():
+        want = state.g_ema(z, z).image
+        got = eng.gen(z, z).image
+    assert (got - want).abs().max().item() <= 1e-6

@@ -14,6 +14,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from transeditor_tpu_torch.config import ModelConfig, TrainConfig
 from transeditor_tpu_torch.io.checkpoint import (checkpoint_steps,
@@ -56,8 +57,9 @@ def _read_png(path):
     w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
     rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
     rows = rows.reshape(h, 1 + w * 3)
-    assert depth == 8 and color == 2 and not rows[:, 0].any()
-    return rows[:, 1:].reshape(h, w, 3)
+    assert depth == 8 and color == 2 and rows[:, 0].max() <= 4
+    # the rows are filtered (Sub, Up, Average, Paeth): PIL unfilters them
+    return np.asarray(Image.open(path))
 
 
 def _params(state):
@@ -82,7 +84,8 @@ def test_train_three_steps_writes_metrics_samples_checkpoint(tmp_path):
     assert [r["path_length"] > 0 for r in lines] == [True, False, True]
     img = _read_png(run / "sample" / "000000.png")
     assert img.shape == (2 * 18 + 2, 2 * 18 + 2, 3)
-    assert checkpoint_steps(str(run / "checkpoint")) == [0]
+    # the cadence's (step 0) and the state after the last step
+    assert checkpoint_steps(str(run / "checkpoint")) == [0, 2]
 
 
 def test_checkpoint_round_trip_continues_identically(tmp_path):

@@ -6,6 +6,7 @@ level (float32 sums in another order can straddle a rounding edge).
 The other tests are those of tests/test_serve.py, against the port.
 """
 
+import base64
 import http.client
 import json
 import threading
@@ -22,11 +23,14 @@ from transeditor_tpu.models import Generator as JaxGenerator
 from transeditor_tpu.serve import InferenceEngine as JaxEngine
 
 import transeditor_tpu_torch.serve as serve_mod
-from transeditor_tpu_torch.config import ModelConfig
+from transeditor_tpu_torch.config import ModelConfig, TrainConfig
+from transeditor_tpu_torch.data.native import decode_jpeg, encode_jpeg
+from transeditor_tpu_torch.io.checkpoint import save_train_state
 from transeditor_tpu_torch.io.torch_export import \
     generator_state_dict_from_jax
 from transeditor_tpu_torch.serve import (InferenceEngine, _pad_pow2,
                                          make_http_server)
+from transeditor_tpu_torch.train.gan import init_state
 
 KW = dict(size=16, style_dim=32, param_dim=32, max_channels=32, n_trans=1)
 CFG = ModelConfig(**KW)
@@ -126,7 +130,7 @@ def test_request_coalescing(weights):
 
 def test_http_server_endpoints(weights):
     """Drive the real HTTP surface: /health, /sample, /decode,
-    /edit_strip, and the 400 for the unported jpeg_b64 format."""
+    /edit_strip, and base64 JPEG answers (``"format": "jpeg_b64"``)."""
     eng = _engine(weights)
     server = make_http_server(eng, "127.0.0.1", 0)
     port = server.server_address[1]
@@ -156,17 +160,58 @@ def test_http_server_endpoints(weights):
         strip = json.loads(conn.getresponse().read())["images"]
         assert np.asarray(strip, np.uint8).shape == (3, 16, 16, 3)
 
-        conn.request("POST", "/sample",
-                     json.dumps({"n": 1, "format": "jpeg_b64"}))
+        conn.request("POST", "/sample", json.dumps(
+            {"n": 2, "format": "jpeg_b64", "quality": 95}))
         resp = conn.getresponse()
-        resp.read()
-        assert resp.status == 400
+        assert resp.status == 200
+        out = json.loads(resp.read())
+        jpegs = [decode_jpeg(base64.b64decode(b)) for b in out["images"]]
+        conn.request("POST", "/decode",
+                     json.dumps({"z": out["z_plus"], "p": out["p_plus"]}))
+        same = np.asarray(json.loads(conn.getresponse().read())["images"],
+                          np.uint8)
+        for jpeg, arr in zip(jpegs, same):
+            # the array answer through the same codec at the same quality
+            # (a 16px noisy sample loses much to JPEG itself)
+            want = decode_jpeg(encode_jpeg(arr, 95))
+            assert jpeg.shape == want.shape == (16, 16, 3)
+            mse = np.mean((jpeg.astype(float) - want.astype(float)) ** 2)
+            assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 40
         conn.close()
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def test_engine_serves_g_ema_of_a_train_state(tmp_path):
+    """``engine_from_checkpoint(state_dir=...)`` serves the g_ema of the
+    latest (or the given) train-state checkpoint."""
+    tcfg = TrainConfig(batch_size=2)
+    state = init_state(CFG, tcfg, seed=4, device="cpu")
+    with torch.no_grad():
+        for p in state.g_ema.parameters():
+            p.add_(0.01)                    # g_ema != g
+    ckpt = str(tmp_path / "checkpoint")
+    save_train_state(ckpt, 3, state)
+    save_train_state(ckpt, 7, state)
+    eng = serve_mod.engine_from_checkpoint(CFG, state_dir=ckpt,
+                                           device="cpu")
+    z = torch.randn(2, 16, 32, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = state.g_ema(z, z).image
+        got = eng.gen(z, z).image
+        other = state.g(z, z).image
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.allclose(got, other)
+    assert serve_mod.engine_from_checkpoint(
+        CFG, state_dir=ckpt, step=3, device="cpu").cfg == CFG
+    with pytest.raises(ValueError, match="exactly one"):
+        serve_mod.engine_from_checkpoint(CFG, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        serve_mod.engine_from_checkpoint(CFG, state_dir=str(tmp_path),
+                                         device="cpu")
 
 
 def test_engine_without_device_raises_when_no_cuda(weights, monkeypatch):

@@ -86,17 +86,30 @@ def checkpoint_steps(ckpt_dir: str) -> list[int]:
                   if m)
 
 
-def restore_train_state(ckpt_dir: str, template: Any,
-                        step: Optional[int] = None):
-    """Load the latest (or ``step``'s) checkpoint into ``template`` (a
-    ``GANTrainState`` of the same configuration, e.g. from
-    ``init_state``), in place, on its device.  Returns (state, step)."""
+def _checkpoint_path(ckpt_dir: str, step: Optional[int]) -> tuple[str, int]:
     if step is None:
         steps = checkpoint_steps(ckpt_dir)
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
         step = steps[-1]
-    path = os.path.join(ckpt_dir, f"{step:06d}.pt")
+    return os.path.join(ckpt_dir, f"{step:06d}.pt"), step
+
+
+def load_train_state_generator(ckpt_dir: str, step: Optional[int] = None
+                               ) -> tuple[Dict[str, torch.Tensor], int]:
+    """The g_ema state dict (CPU tensors) of the latest (or ``step``'s)
+    train-state checkpoint under ``ckpt_dir``, and its step."""
+    path, step = _checkpoint_path(ckpt_dir, step)
+    bundle = torch.load(path, map_location="cpu", weights_only=True)
+    return bundle["g_ema"], step
+
+
+def restore_train_state(ckpt_dir: str, template: Any,
+                        step: Optional[int] = None):
+    """Load the latest (or ``step``'s) checkpoint into ``template`` (a
+    ``GANTrainState`` of the same configuration, e.g. from
+    ``init_state``), in place, on its device.  Returns (state, step)."""
+    path, step = _checkpoint_path(ckpt_dir, step)
     dev = template.mean_path_length.device
     bundle = torch.load(path, map_location=dev, weights_only=True)
     template.g.load_state_dict(bundle["g"], strict=True)

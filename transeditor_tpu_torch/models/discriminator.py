@@ -21,6 +21,8 @@ from torch import nn
 from transeditor_tpu_torch.config import ModelConfig
 from transeditor_tpu_torch.device import resolve_device
 from transeditor_tpu_torch.nn.layers import ConvLayer, EqualLinear
+from transeditor_tpu_torch.parallel import multihost
+from transeditor_tpu_torch.parallel.data_parallel import all_reduce_sum
 
 
 class ResBlock(nn.Module):
@@ -41,21 +43,62 @@ class ResBlock(nn.Module):
         return (out + self.skip(x)) * (1 / math.sqrt(2))
 
 
+def _group_size(b: int, group_size: int) -> int:
+    g = min(b, group_size)
+    while b % g:
+        g -= 1
+    return g
+
+
 def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
                      num_features: int = 1) -> torch.Tensor:
     """Append the cross-sample stddev map as extra channels.  The group
     is the largest divisor of the batch not above ``group_size``; the
-    variance is biased and taken in float32."""
+    variance is biased and taken in float32.
+
+    The groups are strided: sample n of a batch of B falls in group
+    n mod (B / g).  Under a process group of more than one process the
+    batch is the global one (rank r holds samples r*b .. r*b + b - 1 of
+    it, as ``parallel/data_parallel.py::local_rows`` lays it out), so a
+    group spans processes: see ``_minibatch_stddev_global``."""
     b, h, w, c = x.shape
-    g = min(b, group_size)
-    while b % g:
-        g -= 1
+    if multihost.multi_process():
+        return _minibatch_stddev_global(x, group_size, num_features)
+    g = _group_size(b, group_size)
     y = x.reshape(g, b // g, h, w, num_features,
                   c // num_features).float()
     std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
     std = std.mean(dim=(1, 2, 4))                  # [b//g, num_features]
     std = std[:, None, None, :].repeat(g, h, w, 1).to(x.dtype)
     return torch.cat([x, std], dim=-1)
+
+
+def _minibatch_stddev_global(x: torch.Tensor, group_size: int,
+                             num_features: int) -> torch.Tensor:
+    """``minibatch_stddev`` over the global batch of a process group
+    (every process holds the same number of samples).  Each group's mean
+    and then its centred sum of squares are summed across processes
+    from per-process partial sums (two differentiable all-reduces,
+    indexed by global group), so the result equals the single-process
+    one on the whole batch.  Sums into groups and reads back out of them
+    are products with a one-hot [groups, b] matrix, which are
+    deterministic on the card, forward and backward (index_add is not)."""
+    b, h, w, c = x.shape
+    world, rank = multihost.process_count(), multihost.process_index()
+    g = _group_size(b * world, group_size)
+    n_groups = b * world // g
+    group = (rank * b + torch.arange(b, device=x.device)) % n_groups
+    onehot = (group[None, :] == torch.arange(n_groups, device=x.device)
+              [:, None]).float()                        # [groups, b]
+    y = x.reshape(b, -1).float()
+    mean = all_reduce_sum(onehot @ y) / g               # [groups, hwc]
+    centred = y - onehot.t() @ mean
+    var = all_reduce_sum(onehot @ (centred * centred)) / g
+    std = torch.sqrt(var + 1e-8).reshape(n_groups, h, w, num_features,
+                                         c // num_features)
+    std = onehot.t() @ std.mean(dim=(1, 2, 4))          # [b, features]
+    std = std[:, None, None, :].expand(b, h, w, num_features)
+    return torch.cat([x, std.to(x.dtype)], dim=-1)
 
 
 class Discriminator(nn.Module):

@@ -1,11 +1,13 @@
-"""Build the port's CUDA sources into shared libraries, at first use.
+"""Build the port's native sources into shared libraries, at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it
 for ``sm_90a`` into ``build/transeditor_tpu_torch/lib<name>-<hash>.so``
 at the root of the checkout, where ``<hash>`` covers the source and the
-flags, so an edit rebuilds it.  The library is loaded with ``ctypes``.
-Nothing here runs at import time: this module is imported on machines
-without ``nvcc``.
+flags, so an edit rebuilds it.  ``build_shared`` does the same for any
+other source and compiler (the data loader's C++ runtime and
+``csrc/image_io.cpp`` are built with g++ through it).  The library is loaded with ``ctypes``.  Nothing here
+runs at import time: this module is imported on machines without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Sequence
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -41,11 +44,39 @@ def _nvcc() -> str:
     return path
 
 
+def hashed_path(stem: str, src: Path, flags: Sequence[str]) -> Path:
+    """``BUILD_DIR/lib<stem>-<hash>.so``, the hash over source and flags."""
+    h = hashlib.sha256(Path(src).read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_shared(stem: str, src: Path, compiler: str,
+                 flags: Sequence[str], libs: Sequence[str] = ()) -> Path:
+    """Compile ``src`` with ``compiler flags -o <lib> src libs`` unless
+    its hashed library exists; returns the library's path.
+
+    The compiler's report is kept beside the library as ``<lib>.log``.
+    A failed build raises with that report.
+    """
+    out = hashed_path(stem, src, [*flags, *libs])
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [compiler, *flags, "-o", str(tmp), str(src), *libs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(compiler).name} failed for "
+                           f"{Path(src).name}:\n{log}")
+    out.with_suffix(".so.log").write_text(log)
+    os.replace(tmp, out)          # atomic: concurrent builds agree
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return hashed_path(name, CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
 def compile_library(name: str) -> Path:
@@ -57,16 +88,7 @@ def compile_library(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-    out.with_suffix(".so.log").write_text(log)
-    os.replace(tmp, out)          # atomic: concurrent builds agree
-    return out
+    return build_shared(name, CSRC / f"{name}.cu", _nvcc(), NVCC_FLAGS)
 
 
 def load_library(name: str) -> ctypes.CDLL:

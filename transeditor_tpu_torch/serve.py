@@ -15,8 +15,10 @@ simultaneous sample/decode calls into one forward.  The HTTP front
 (stdlib ThreadingHTTPServer, JSON) is a thin adapter; the engine is the
 library API.
 
-Run on the card:
+Run on the card, from a reference ``.pt`` or from the port's training
+checkpoints (the latest, or ``--step``):
   python -m transeditor_tpu_torch.serve --ckpt 790000.pt --port 8000
+  python -m transeditor_tpu_torch.serve --state_dir out/run1/checkpoint
 """
 
 from __future__ import annotations
@@ -247,10 +249,20 @@ def make_http_server(engine: InferenceEngine, host: str = "127.0.0.1",
     POST /decode      {"z": [...], "p": [...], "plus_space": true}
     POST /edit_strip  {"z_plus", "p_plus", "boundary", "space", ...}
 
-    ``{"format": "jpeg_b64"}`` is answered with HTTP 400: the port has
-    no binding to the native JPEG encoder yet.
+    Any POST may add ``{"format": "jpeg_b64"[, "quality": 90]}`` to get
+    base64 JPEG strings instead of nested uint8 lists (encoded by libjpeg
+    through the native runtime, ``data/native.py``).
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    def encode_images(img: np.ndarray, req: dict):
+        if req.get("format") == "jpeg_b64":
+            import base64
+            from transeditor_tpu_torch.data.native import encode_jpeg
+            q = int(req.get("quality", 90))
+            return [base64.b64encode(encode_jpeg(im, q)).decode()
+                    for im in img]
+        return img.tolist()
 
     class Handler(BaseHTTPRequestHandler):
         def _send_json(self, obj):
@@ -275,22 +287,17 @@ def make_http_server(engine: InferenceEngine, host: str = "127.0.0.1",
             except ValueError:
                 self.send_error(400, "body must be JSON")
                 return
-            if req.get("format") == "jpeg_b64":
-                self.send_error(400, "format 'jpeg_b64' is not available "
-                                     "in the PyTorch port yet; omit "
-                                     "'format' for uint8 lists")
-                return
             try:
                 if self.path == "/sample":
                     img, zp, pp = engine.sample(int(req.get("n", 1)))
-                    resp = {"images": img.tolist(),
+                    resp = {"images": encode_images(img, req),
                             "z_plus": zp.tolist(), "p_plus": pp.tolist()}
                 elif self.path == "/decode":
                     img = engine.decode(
                         np.asarray(req["z"], np.float32),
                         np.asarray(req["p"], np.float32),
                         bool(req.get("plus_space", True)))
-                    resp = {"images": img.tolist()}
+                    resp = {"images": encode_images(img, req)}
                 elif self.path == "/edit_strip":
                     img = engine.edit_strip(
                         np.asarray(req["z_plus"], np.float32),
@@ -300,7 +307,7 @@ def make_http_server(engine: InferenceEngine, host: str = "127.0.0.1",
                         start=float(req.get("start", -3.0)),
                         end=float(req.get("end", 3.0)),
                         steps=int(req.get("steps", 8)))
-                    resp = {"images": img.tolist()}
+                    resp = {"images": encode_images(img, req)}
                 else:
                     self.send_error(404)
                     return
@@ -326,20 +333,36 @@ def run_http_server(engine: InferenceEngine, host: str = "127.0.0.1",
         server.server_close()
 
 
-def engine_from_checkpoint(cfg: ModelConfig, ckpt: str, seed: int = 0,
+def engine_from_checkpoint(cfg: ModelConfig, ckpt: Optional[str] = None,
+                           state_dir: Optional[str] = None,
+                           step: Optional[int] = None, seed: int = 0,
                            device: str | torch.device | None = None
                            ) -> InferenceEngine:
-    """Build an engine from the ``g_ema`` of a reference ``.pt``."""
-    from transeditor_tpu_torch.io.checkpoint import load_reference_generator
-    return InferenceEngine(cfg, load_reference_generator(ckpt, cfg),
-                           seed=seed, device=device)
+    """Build an engine serving ``g_ema``, from exactly one of a reference
+    ``.pt`` (``ckpt``) or a directory of the port's training checkpoints
+    (``state_dir``; the latest, or ``step``'s)."""
+    from transeditor_tpu_torch.io import checkpoint
+    if (ckpt is None) == (state_dir is None):
+        raise ValueError("pass exactly one of ckpt / state_dir")
+    if ckpt is not None:
+        weights = checkpoint.load_reference_generator(ckpt, cfg)
+    else:
+        weights, got = checkpoint.load_train_state_generator(state_dir, step)
+        print(f"serving g_ema from step {got}", flush=True)
+    return InferenceEngine(cfg, weights, seed=seed, device=device)
 
 
 def main(argv: Optional[List[str]] = None):
     import argparse
     p = argparse.ArgumentParser()
-    p.add_argument("--ckpt", type=str, required=True,
-                   help="reference-layout .pt bundle (g_ema is served)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt", type=str,
+                     help="reference-layout .pt bundle (g_ema is served)")
+    src.add_argument("--state_dir", type=str,
+                     help="training checkpoint dir (g_ema is served)")
+    p.add_argument("--step", type=int, default=None,
+                   help="with --state_dir: this step's checkpoint, not the "
+                        "latest")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", type=str, default="cuda")
@@ -351,7 +374,8 @@ def main(argv: Optional[List[str]] = None):
     add_model_flags(p, dtype_default="bfloat16")
     args = p.parse_args(argv)
     cfg = model_config_from_args(args)
-    engine = engine_from_checkpoint(cfg, args.ckpt, device=args.device)
+    engine = engine_from_checkpoint(cfg, args.ckpt, args.state_dir,
+                                    args.step, device=args.device)
     if args.warmup > 0:
         t0 = time.time()
         print(f"warming up to batch {args.warmup}...", flush=True)

@@ -13,6 +13,15 @@ The step draws its latents, path noise and layer noise from an explicit
 ``torch.Generator``.  ``draws=`` replaces the latents and path-noise
 images with given values (a parity test feeds the values the JAX step
 drew); nothing else uses it.
+
+Under a process group (``parallel/``) the step keeps the JAX package's
+global-batch semantics: a step over P processes, each with 1/P of the
+batch, equals the one-process step on the whole batch.  Each process
+scales its losses to its local share of the global mean, the gradients
+are summed over processes (``all_reduce_grads``) before each optimizer
+step, and the path-length means and the discriminator's minibatch
+stddev are taken over the global batch.  Each process draws its own
+latents and noise from its own generator.
 """
 
 from __future__ import annotations
@@ -27,6 +36,10 @@ from transeditor_tpu_torch.config import ModelConfig, TrainConfig
 from transeditor_tpu_torch.device import resolve_device
 from transeditor_tpu_torch.models.discriminator import Discriminator
 from transeditor_tpu_torch.models.generator import Generator
+from transeditor_tpu_torch.parallel import multihost
+from transeditor_tpu_torch.parallel.data_parallel import (all_reduce_grads,
+                                                          global_mean,
+                                                          local_rows)
 from transeditor_tpu_torch.train import losses
 from transeditor_tpu_torch.utils.sampling import sample_zp
 
@@ -78,7 +91,8 @@ def _grads(loss: torch.Tensor, params: list) -> list:
 
 
 def _apply(opt: torch.optim.Optimizer, params: list, grads: list) -> None:
-    for p, g in zip(params, grads):
+    """Sum ``grads`` over processes and take one optimizer step."""
+    for p, g in zip(params, all_reduce_grads(grads)):
         p.grad = g
     opt.step()
     for p in params:
@@ -117,20 +131,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     ``draws``: {"d": (z, p), "g": (z, p), "path": (z, p, noise_img),
     "spatial": (z, p, noise_img)}; z, p of "d" and "g" span the whole
-    batch and are cut into the K microbatches in order.
+    batch and are cut into the K microbatches in order.  Under a process
+    group they span the global batch, and each rank takes its rows as
+    ``parallel/data_parallel.py::local_rows`` lays them out (with K
+    microbatches, its 1/world of each); ``real`` is the rank's rows in
+    the same layout.
+
+    The process group, if any, is read when the step is built.
     """
     dev = resolve_device(device)
     n_accum = max(1, int(tcfg.grad_accum))
+    share = 1.0 / multihost.process_count()   # local share of a global mean
 
-    def latents(draws, phase, rng, batch):
+    def latents(draws, phase, rng, batch, accum=n_accum):
         if draws is not None:
-            return tuple(t.to(dev) for t in draws[phase][:2])
+            return tuple(local_rows(t, accum).to(dev)
+                         for t in draws[phase][:2])
         return sample_zp(rng, batch, cfg.n_tokens, cfg.style_dim)
 
     def path_inputs(draws, phase, rng, batch):
-        z, p = latents(draws, phase, rng, batch)
+        # the path batch is one pass, not cut into microbatches
+        z, p = latents(draws, phase, rng, batch, accum=1)
         if draws is not None:
-            noise = draws[phase][2].to(dev)
+            noise = local_rows(draws[phase][2]).to(dev)
         else:
             noise = losses.path_noise(rng, (batch, cfg.size, cfg.size, 3))
         return z, p, noise
@@ -164,7 +187,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             fake_pred, real_pred = d(fake), d(r)
             loss = losses.d_logistic_loss(real_pred.float(),
                                           fake_pred.float())
-            return _grads(loss, params_d), {
+            return _grads(loss * share, params_d), {
                 "d": loss.detach(), "real_score": real_pred.detach().mean(),
                 "fake_score": fake_pred.detach().mean()}
 
@@ -178,7 +201,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             def r1_phase(r):
                 r1 = losses.r1_penalty(d, r)
                 weighted = tcfg.r1_gamma / 2 * r1 * tcfg.d_reg_every
-                return _grads(weighted, params_d), {"r1": r1.detach()}
+                return _grads(weighted * share, params_d), {
+                    "r1": r1.detach()}
 
             grads, m = _mean_over(r1_phase, chunk(real))
             _apply(state.opt_d, params_d, grads)
@@ -193,7 +217,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             z, p = args
             fake = g(z, p, rng=rng).image
             loss = losses.g_nonsaturating_loss(d(fake).float())
-            return _grads(loss, params_g), {"g": loss.detach()}
+            return _grads(loss * share, params_g), {"g": loss.detach()}
 
         grads, m = _mean_over(g_phase, list(zip(chunk(zg), chunk(pg))))
         _apply(state.opt_g, params_g, grads)
@@ -211,7 +235,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     lambda lat: g.synthesize(p_plus, lat, rng=rng), latent,
                     noise, state.mean_path_length)
             weighted = tcfg.path_regularize * tcfg.g_reg_every * penalty
-            _apply(state.opt_g, params_g, _grads(weighted, params_g))
+            _apply(state.opt_g, params_g, _grads(weighted * share, params_g))
             metrics.update(path=penalty.detach(),
                            path_length=lengths.detach().mean())
         else:
@@ -234,12 +258,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             # .sum(2).mean(1) on its [B, 512, 16] layout
             lengths = torch.sqrt(grad.pow(2).sum(dim=1).mean(dim=-1))
             mean_spl = state.mean_spatial_path_length
-            path_mean = mean_spl + 0.01 * (lengths.mean() - mean_spl)
+            path_mean = mean_spl + 0.01 * (global_mean(lengths) - mean_spl)
             # path_mean is not detached inside the penalty
             penalty = (lengths - path_mean).pow(2).mean()
             weighted = (tcfg.spatial_path_regularize * tcfg.g_reg_every
                         * penalty)
-            _apply(state.opt_g, params_g, _grads(weighted, params_g))
+            _apply(state.opt_g, params_g, _grads(weighted * share, params_g))
             state.mean_spatial_path_length = path_mean.detach()
             metrics.update(spatial_path=penalty.detach(),
                            spatial_path_length=lengths.detach().mean())

@@ -1,10 +1,12 @@
 """Training driver: schedule, logging, sampling, checkpointing
-(``transeditor_tpu/train/loop.py``, on one device).
+(``transeditor_tpu/train/loop.py``), on one device or one process of a
+data-parallel group.
 
 The lazy-regularisation cadence (R1 every ``d_reg_every`` steps, path
 length every ``g_reg_every``), a fixed grid of ``n_sample`` images from
 g_ema every ``sample_every`` steps, a checkpoint every
-``checkpoint_every`` and scalar logs, around ``make_train_step``.
+``checkpoint_every`` steps and after the last one (the JAX loop keeps
+only the cadence's), and scalar logs, around ``make_train_step``.
 
 Unlike the JAX loop's prefetcher, ``DevicePrefetcher`` ends: when the
 data runs out it raises ``StopIteration`` (and again on every later
@@ -29,6 +31,8 @@ import torch
 from transeditor_tpu_torch.config import ModelConfig, TrainConfig
 from transeditor_tpu_torch.device import resolve_device
 from transeditor_tpu_torch.io.checkpoint import save_train_state
+from transeditor_tpu_torch.parallel import multihost
+from transeditor_tpu_torch.parallel.data_parallel import broadcast_module
 from transeditor_tpu_torch.train.gan import (GANTrainState, init_state,
                                              make_train_step)
 from transeditor_tpu_torch.utils.image import make_grid, save_png
@@ -71,21 +75,36 @@ class GracefulShutdown:
 
 class MetricLogger:
     """Scalar logs: one JSON line a call to ``<logdir>/metrics.jsonl``
-    (when ``logdir`` is set), and a stdout line every ``log_every``
-    steps."""
+    (when ``logdir`` is set), a stdout line every ``log_every`` steps,
+    and wandb when ``use_wandb`` is set and the package is installed
+    (a soft dependency, as in the reference: without it the other sinks
+    still run)."""
 
-    def __init__(self, logdir: Optional[str], log_every: int = 50):
+    def __init__(self, logdir: Optional[str], log_every: int = 50,
+                 use_wandb: bool = False):
         self.log_every = log_every
         self.jsonl = None
+        self.wandb = None
         if logdir:
             os.makedirs(logdir, exist_ok=True)
             self.jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
+        if use_wandb:
+            try:
+                import wandb
+            except ImportError:
+                print("wandb is not installed: logging to metrics.jsonl "
+                      "and stdout only", flush=True)
+            else:
+                wandb.init(project="transeditor_tpu")
+                self.wandb = wandb
 
     def log(self, step: int, metrics: dict) -> None:
         values = {k: float(v) for k, v in metrics.items()}
         if self.jsonl is not None:
             self.jsonl.write(json.dumps({"step": step, **values}) + "\n")
             self.jsonl.flush()
+        if self.wandb is not None:
+            self.wandb.log(values, step=step)
         if step % self.log_every == 0:
             msg = "; ".join(f"{k}: {v:.4f}" for k, v in sorted(values.items()))
             print(f"[{step}] {msg}", flush=True)
@@ -94,6 +113,9 @@ class MetricLogger:
         if self.jsonl is not None:
             self.jsonl.close()
             self.jsonl = None
+        if self.wandb is not None:
+            self.wandb.finish()
+            self.wandb = None
 
 
 class _End:
@@ -184,78 +206,119 @@ class DevicePrefetcher:
         return self._thread.is_alive()
 
 
+def step_seed(seed: int, rank: int, step: int) -> int:
+    """The seed of rank ``rank``'s draws at step ``step``: they depend on
+    (seed, rank, step) alone, so a resumed run continues as the whole
+    run, and each process of a group draws its own latents and noise."""
+    return int(np.random.SeedSequence([seed, rank, step])
+               .generate_state(1, np.uint64)[0])
+
+
+def _save(ckpt_dir: str, step: int, state: GANTrainState) -> None:
+    """Rank 0 writes the checkpoint of ``step``; every process waits for
+    it on both sides, so none reads or starts the next step against a
+    half-written file."""
+    multihost.synchronize()
+    if multihost.is_main():
+        save_train_state(ckpt_dir, step, state)
+    multihost.synchronize()
+
+
 def train(cfg: ModelConfig, tcfg: TrainConfig,
           data_iter: Iterator[np.ndarray], out_dir: str = "out",
           exp_name: str = "default", state: Optional[GANTrainState] = None,
           start_step: int = 0, max_steps: Optional[int] = None,
           prefetch: int = 2, device: str | torch.device | None = None,
-          log_every: int = 50) -> GANTrainState:
+          log_every: int = 50, use_wandb: bool = False) -> GANTrainState:
     """Train from ``start_step`` to ``tcfg.total_steps`` (or for
     ``max_steps``) on uint8 NHWC batches from ``data_iter``.
 
     Runs on ``device`` (default "cuda"; raises without a card unless
     "cpu").  Writes ``<out_dir>/<exp_name>/log/metrics.jsonl`` (every
     ``log_every`` steps; each log waits for the step), ``sample/`` PNG
-    grids from g_ema and ``checkpoint/<step>.pt``.  Raises
+    grids from g_ema and ``checkpoint/<step>.pt``, every
+    ``checkpoint_every`` steps and after the last step.  Raises
     ``StopIteration`` if the data runs out first.  On SIGTERM / SIGINT
     it checkpoints the state after the step in flight and returns.
+
+    Under a process group (``parallel/multihost.py``) ``data_iter``
+    yields this process's share of each global batch; rank 0's modules
+    are copied to every process first, and rank 0 alone writes logs,
+    samples and checkpoints.  Logged values are means over processes,
+    and ``data_wait_share`` is the share of the interval's wall time the
+    loop spent waiting for its next batch.
     """
     dev = resolve_device(device)
     if state is None:
         state = init_state(cfg, tcfg, seed=tcfg.seed, device=dev)
+    for m in (state.g, state.d, state.g_ema):
+        broadcast_module(m)
     step_fn = make_train_step(cfg, tcfg, device=dev)
     rng = torch.Generator(dev)
+    rank, world = multihost.process_index(), multihost.process_count()
+    rank0 = multihost.is_main()
 
     run_dir = os.path.join(out_dir, exp_name)
     sample_dir = os.path.join(run_dir, "sample")
     ckpt_dir = os.path.join(run_dir, "checkpoint")
-    os.makedirs(sample_dir, exist_ok=True)
+    if rank0:
+        os.makedirs(sample_dir, exist_ok=True)
     sample_z, sample_p = sample_zp(
         torch.Generator(dev).manual_seed(tcfg.seed + 1), tcfg.n_sample,
         cfg.n_tokens, cfg.style_dim)
     end = tcfg.total_steps if not max_steps else min(
         tcfg.total_steps, start_step + max_steps)
 
-    logger = MetricLogger(os.path.join(run_dir, "log"), log_every)
+    logger = MetricLogger(os.path.join(run_dir, "log") if rank0 else None,
+                          log_every, use_wandb=use_wandb and rank0)
     fetcher = (DevicePrefetcher(data_iter, dev, prefetch) if prefetch > 0
                else None)
     try:
-        t0, imgs_seen = time.perf_counter(), 0
+        t0, imgs_seen, waited = time.perf_counter(), 0, 0.0
         with GracefulShutdown() as stop:
+            i = start_step - 1
             for i in range(start_step, end):
+                t_wait = time.perf_counter()
                 real = (next(fetcher) if fetcher is not None
                         else torch.as_tensor(np.asarray(next(data_iter))))
-                # the draws of step i depend on (seed, i) alone, so a run
-                # resumed from a checkpoint continues as the whole run
-                rng.manual_seed((tcfg.seed << 32) + i)
+                waited += time.perf_counter() - t_wait
+                rng.manual_seed(step_seed(tcfg.seed, rank, i))
                 state, metrics = step_fn(
                     state, real, rng,
                     do_d_reg=i % tcfg.d_reg_every == 0,
                     do_g_reg=i % tcfg.g_reg_every == 0,
                     do_spatial_reg=(tcfg.spatial_regu
                                     and i % tcfg.g_reg_every == 0))
-                imgs_seen += real.shape[0]
+                imgs_seen += real.shape[0] * world
                 if i % log_every == 0:
-                    values = {k: float(v) for k, v in metrics.items()}
-                    dt = time.perf_counter() - t0
-                    values["imgs_per_sec"] = imgs_seen / max(dt, 1e-9)
-                    logger.log(i, values)
-                    t0, imgs_seen = time.perf_counter(), 0
-                if i % tcfg.sample_every == 0:
+                    values = multihost.reduce_loss_dict(metrics)
+                    dt = max(time.perf_counter() - t0, 1e-9)
+                    values["imgs_per_sec"] = imgs_seen / dt
+                    values["data_wait_share"] = waited / dt
+                    if rank0:
+                        logger.log(i, values)
+                    t0, imgs_seen, waited = time.perf_counter(), 0, 0.0
+                if rank0 and i % tcfg.sample_every == 0:
                     with torch.no_grad():
                         img = state.g_ema(sample_z, sample_p).image
                     grid = make_grid(img.float().cpu().numpy(),
                                      nrow=max(1, int(tcfg.n_sample ** 0.5)))
                     save_png(os.path.join(sample_dir, f"{i:06d}.png"), grid)
-                if i % tcfg.checkpoint_every == 0:
-                    save_train_state(ckpt_dir, i, state)
-                if stop.requested:
+                saved = i % tcfg.checkpoint_every == 0
+                if saved:
+                    _save(ckpt_dir, i, state)
+                # every process breaks at the same step (see any_flag)
+                if multihost.any_flag(stop.requested):
                     # checkpoint i is the state after step i: a resume
                     # starts at i + 1 with at most this step's work redone
-                    save_train_state(ckpt_dir, i, state)
-                    print(f"[{i}] shutdown signal: checkpointed the state "
-                          f"after step {i}", flush=True)
-                    break
+                    if not saved:
+                        _save(ckpt_dir, i, state)
+                    if rank0:
+                        print(f"[{i}] shutdown signal: checkpointed the "
+                              f"state after step {i}", flush=True)
+                    return state
+            if i >= start_step and i % tcfg.checkpoint_every:
+                _save(ckpt_dir, i, state)        # the state after the run
     finally:
         if fetcher is not None:
             fetcher.close()

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from transeditor_tpu_torch.parallel.data_parallel import global_mean
+
 
 def d_logistic_loss(real_pred: torch.Tensor,
                     fake_pred: torch.Tensor) -> torch.Tensor:
@@ -45,14 +47,16 @@ def path_length_penalty(synth_fn, latent: torch.Tensor,
     latent: [B, n_latent, D] per-layer styles (in the graph of the
     parameters, or a leaf that requires grad); synth_fn(latent) -> image.
     Returns (penalty, new mean detached, path_lengths).  The running mean
-    inside the penalty is not detached, as in the reference.
+    inside the penalty is not detached, as in the reference; its batch
+    mean is over the global batch under a process group, the penalty's
+    over this process's rows.
     """
     img = synth_fn(latent).float()
     grad, = torch.autograd.grad((img * noise_img).sum(), latent,
                                 create_graph=True)
     grad = grad.float()
     path_lengths = torch.sqrt(grad.pow(2).sum(dim=2).mean(dim=1))
-    path_mean = mean_path_length + decay * (path_lengths.mean()
+    path_mean = mean_path_length + decay * (global_mean(path_lengths)
                                             - mean_path_length)
     penalty = (path_lengths - path_mean).pow(2).mean()
     return penalty, path_mean.detach(), path_lengths
