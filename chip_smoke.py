@@ -91,7 +91,36 @@ clock comes before the first use of torch.profiler.
      its g_ema) and an HTTP ``POST /sample`` (``jpeg_b64`` with libjpeg,
      PSNR >= 35 dB against the array answer), counted.
 
-The phases run in the order 1, 2a, 3, 2b, 3b, 4, 5a, 5b, 6.  The last
+  7. inversion (``invert/projector.py``, ``cli/project.py``):
+  7a. the projector at full width (the main path, counted): the 256px
+     ``ModelConfig()`` in float32 with seeded random weights and a seeded
+     random VGG LPIPS, the target the generator's own image for seeded
+     latents; ``estimate_latent_stats`` on its 10k draws; a warm call,
+     then 60 steps at batch 8 (the lr ramps up and down): ms per step by
+     the host clock between synchronised steps, the perceptual loss's
+     first and last values (it must fall), launches by role and path
+     (6 forward, 6 adjoint, 6 recompute a step, all TMA, and 6 forward
+     for the final decode), peak memory, the step's flop count (bound at
+     67 TFLOP/s).  It runs right after phase 3, before the first
+     torch.profiler window; after phase 6 the same setup is built again
+     for its profile (top kernels, device-busy share of a 3-step call)
+     and its layer split (events: the generator half, the LPIPS half),
+     7b and 7c;
+  7b. one full-width projector step: each of its 18 launches replayed
+     through ``fused_blur4_plain`` on its own inputs (1e-5 of the plain
+     output's largest magnitude); and its gradients in z+ and p+ against
+     the same step with ``fused_blur._blur`` replaced by
+     ``fused_blur4_plain``, the LPIPS image pinned to the plain run's in
+     both, within 3x a rounding floor (the largest change of the kernel
+     run with z+ and p+ scaled by 1 + 2**-22, 1 - 2**-22 or 1 + 2**-21)
+     or 1e-4 (L2, relative), a coarse hold: the generator's leaky-ReLU
+     kinks make the gradient itself move that much under one ulp;
+  7c. ``cli.project.main`` (a main path, counted) on 9 PNGs with
+     ``--step 10 --batch 8``, so the tail batch of 1 is padded: every
+     output file, latents (9, 16, 512), the tail's own row kept.
+
+The phases run in the order 1, 2a, 3, 7a, 2b, 3b, 4, 5a, 5b, 6, then
+7a's profile, 7b, 7c.  The last
 three lines are the card line, the kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX or of the JAX package.
@@ -424,7 +453,6 @@ def profile_forward(g, dev, batch: int, top: int = 6) -> dict:
     """Device time by kernel for one bf16 forward (torch.profiler).  The
     busy share is summed kernel time over the profiled forward's wall
     time; the profiler's own host cost makes it a lower bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     zb, pb = (t.to(dev) for t in codes(batch, g.cfg.style_dim, seed=4))
@@ -438,14 +466,7 @@ def profile_forward(g, dev, batch: int, top: int = 6) -> dict:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
 
-    # kernels only: CPU-side ops also carry the device time they launched
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
-    busy_us = sum(_dev_us(e) for e in events)
-    blur_us = sum(_dev_us(e) for e in events if "fused_blur4" in e.key)
-    events.sort(key=_dev_us, reverse=True)
-    rows = [{"name": e.key[:60], "calls": e.count, "ms": _dev_us(e) / 1e3}
-            for e in events[:top]]
+    busy_us, blur_us, rows = kernel_table(prof, top)
     print(f"profile bf16 batch {batch}: device busy {busy_us / 1e3:.3f} ms "
           f"of {wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.1%}); "
           f"fused_blur4 {blur_us / 1e3:.3f} ms", flush=True)
@@ -1412,6 +1433,400 @@ def serve_state_phase(fb, dev, state_dir: str, with_jpeg: bool,
     return res
 
 
+# ---------------------------------------------------------------- phase 7
+
+PROJECT_BATCH = 8                  # cli.project's default batch
+PROJECT_STEPS = 60                 # the lr ramps up over 3 steps, down over 15
+N_PROJECT_IMAGES = 9               # 7c: a batch of 8 and a tail of 1
+NUDGES = (2.0 ** -22, -(2.0 ** -22), 2.0 ** -21)   # 7b's rounding floor
+
+
+def projector_setup(dev, **cfg_kw):
+    """((g, lpips, target, stats), seconds of the stats): the full-width
+    f32 generator (seeded random weights), a seeded random VGG LPIPS,
+    both frozen, a target the generator drew from seeded latents (so a
+    perfect inversion exists), and ``estimate_latent_stats`` on its 10k
+    draws.  The same every call."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.invert.projector import estimate_latent_stats
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.zoo.lpips import LPIPS
+
+    cfg = ModelConfig(**cfg_kw)
+    g = Generator(cfg, device=dev, seed=0).eval().requires_grad_(False)
+    lpips = LPIPS("vgg", device=dev, seed=0).requires_grad_(False)
+    z, p = codes(PROJECT_BATCH, cfg.style_dim, seed=5)
+    with torch.no_grad():
+        target = g(z.to(dev), p.to(dev)).image.float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = estimate_latent_stats(g, seed=0)
+    torch.cuda.synchronize()
+    return (g, lpips, target, stats), time.perf_counter() - t0
+
+
+def projector_phase(fb, dev, card: str, **cfg_kw) -> dict:
+    """7a (a main path, counted): ``estimate_latent_stats`` on its full
+    10k draws, then ``project`` for PROJECT_STEPS steps at batch 8.  Each
+    step is timed by the host clock between two synchronisations (a
+    wrapper around ``projector_loss``, which each step calls once); the
+    kernel's launches by role and path; peak memory.  Runs before the
+    first torch.profiler window, as every host-clock timing does.
+    ``cfg_kw`` narrows the model for a CPU rehearsal."""
+    from transeditor_tpu_torch.invert import projector as proj
+
+    (g, lpips, target, stats), stats_s = projector_setup(dev, **cfg_kw)
+    ups = g.cfg.log_size - 2
+    check(all(bool(torch.isfinite(t).all()) for t in stats)
+          and bool((stats[1] > 0).all()), "latent statistics")
+    pcfg = proj.ProjectorConfig(steps=PROJECT_STEPS, trace_every=1)
+    proj.project(g, lpips, target, dataclasses.replace(pcfg, steps=2),
+                 stats=stats, device=dev)       # warm: cuDNN, allocator
+
+    stamps = []
+    loss_fn = proj.projector_loss
+
+    def timed_loss(*args, **kw):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return loss_fn(*args, **kw)
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    proj.projector_loss = timed_loss
+    try:
+        torch.cuda.synchronize()
+        fb.launches.reset()                  # the main path starts here
+        t0 = time.perf_counter()
+        res = proj.project(g, lpips, target, pcfg, stats=stats, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fb.launches.by_role_path     # ... and ends here
+    finally:
+        proj.projector_loss = loss_fn
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = (np.diff(stamps) * 1e3).tolist()
+    flops = projector_step_flops(g, lpips, target, stats)
+    trace = res["perceptual_trace"]
+    want = {"forward": {"tma": ups * (PROJECT_STEPS + 1)},
+            "adjoint": {"tma": ups * PROJECT_STEPS},
+            "recompute": {"tma": ups * PROJECT_STEPS}}
+    check(counts == want, f"projector launches {counts}, want {want}")
+    check(np.isfinite(trace).all() and np.isfinite(res["z_plus"]).all()
+          and np.isfinite(res["image"]).all(), "projector: non-finite")
+    check(res["z_plus"].shape == (PROJECT_BATCH, 16, g.cfg.style_dim),
+          f"z_plus {res['z_plus'].shape}")
+    check(float(trace[-1]) < float(trace[0]),
+          f"perceptual loss did not fall: {trace[0]} -> {trace[-1]}")
+    out = {"steps": PROJECT_STEPS, "batch": PROJECT_BATCH,
+           "stats_s": stats_s, "wall_s": wall, "step_ms": step_ms,
+           "ms_per_step_median": float(np.median(step_ms)),
+           "ms_per_step_mean": float(np.mean(step_ms)),
+           "perceptual_first": float(trace[0]),
+           "perceptual_last": float(trace[-1]),
+           "launches": counts,
+           "launches_per_step": {
+               r: (n["tma"] - (ups if r == "forward" else 0)) / PROJECT_STEPS
+               for r, n in counts.items()},
+           "peak_bytes": peak, "peak_bytes_over_base": peak - base,
+           "flops_per_step": flops,
+           "bound_ms": flops / F32_FLOPS_PER_S * 1e3}
+    print(f"projector: {g.cfg.size}px f32 batch {PROJECT_BATCH}, latent "
+          f"statistics (10k draws) in {stats_s:.2f} s; {PROJECT_STEPS} "
+          f"steps in {wall:.2f} s, {out['ms_per_step_median']:.2f} ms per "
+          f"step (median; mean {out['ms_per_step_mean']:.2f}, host clock "
+          f"between synchronised steps) on {card}; perceptual loss "
+          f"{trace[0]:.4f} -> {trace[-1]:.4f}; fused_blur4 launches "
+          f"{counts} (per step {out['launches_per_step']}, the final "
+          f"decode adds {ups} forward); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB over "
+          f"what was allocated before); {flops / 1e12:.3f} TFLOP a step "
+          f"(torch.utils.flop_counter), bound {out['bound_ms']:.2f} ms at "
+          f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s float32", flush=True)
+    return out
+
+
+def projector_step_flops(g, lpips, target, stats) -> int:
+    """The floating-point operations of one projector step's objective
+    and its gradients in z+ and p+ (convolutions and matmuls, as
+    torch.utils.flop_counter counts them; the kernel's blur and the
+    elementwise work are not in it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from transeditor_tpu_torch.invert import projector as proj
+
+    z_mean, _, p_mean = stats
+    z = z_mean.expand(target.shape[0], *z_mean.shape).clone()
+    p = p_mean.expand(target.shape[0], *p_mean.shape).clone()
+    z.requires_grad_(True)
+    p.requires_grad_(True)
+    with FlopCounterMode(display=False) as counter:
+        proj.projector_loss(g, lpips, target, z, p, None,
+                            proj.ProjectorConfig())[0].backward()
+    return counter.get_total_flops()
+
+
+def kernel_table(prof, top: int = 6):
+    """(busy us, fused_blur4 us, top kernels) of a torch.profiler run:
+    device kernels only (CPU-side ops also carry the device time they
+    launched)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    busy_us = sum(_dev_us(e) for e in events)
+    blur_us = sum(_dev_us(e) for e in events if "fused_blur4" in e.key)
+    events.sort(key=_dev_us, reverse=True)
+    rows = [{"name": e.key[:60], "calls": e.count, "ms": _dev_us(e) / 1e3}
+            for e in events[:top]]
+    return busy_us, blur_us, rows
+
+
+def profile_projector(dev, setup, steps: int = 3) -> dict:
+    """7a's profile: one ``project`` call of ``steps`` steps (plus its
+    final decode) under torch.profiler; the busy share is summed kernel
+    time over the call's wall time, a lower bound (the profiler's own
+    host cost is in the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    from transeditor_tpu_torch.invert import projector as proj
+
+    g, lpips, target, stats = setup
+    pcfg = proj.ProjectorConfig(steps=steps)
+    proj.project(g, lpips, target, pcfg, stats=stats, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        proj.project(g, lpips, target, pcfg, stats=stats, device=dev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, blur_us, rows = kernel_table(prof)
+    check(busy_us > 0, "the projector profile shows no device time")
+    print(f"profile projector, {steps} steps + final decode, f32 batch "
+          f"{PROJECT_BATCH}: device busy {busy_us / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.1%}); "
+          f"fused_blur4 {blur_us / 1e3:.3f} ms", flush=True)
+    for r in rows:
+        print(f"  {r['ms']:9.3f} ms  x{r['calls']:<4d} {r['name']}",
+              flush=True)
+    return {"steps": steps, "busy_ms": busy_us / 1e3,
+            "wall_ms": wall_us / 1e3, "busy_share": busy_us / wall_us,
+            "fused_blur4_ms": blur_us / 1e3, "top": rows}
+
+
+def projector_split(dev, setup, reps: int = 5) -> dict:
+    """7a's layers: device time (CUDA events around ``reps`` calls after
+    a warm one) of the step's objective and gradients, of the generator
+    half (decode + gradients in z+ and p+ under a fixed cotangent) and of
+    the LPIPS half (distance + gradient in the image), with cuDNN's
+    heuristic algorithm choice (the port's setting) and with
+    ``cudnn.benchmark`` (autotuned, not used by the port)."""
+    from transeditor_tpu_torch.invert import projector as proj
+
+    g, lpips, target, stats = setup
+    z_mean, _, p_mean = stats
+    pcfg = proj.ProjectorConfig()
+
+    def latents():
+        z = z_mean.expand(PROJECT_BATCH, *z_mean.shape).clone()
+        p = p_mean.expand(PROJECT_BATCH, *p_mean.shape).clone()
+        return z.requires_grad_(True), p.requires_grad_(True)
+
+    z, p = latents()
+    cot = torch.randn(target.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(3))
+    img = proj._decode(g, z, p, None, None).detach().requires_grad_(True)
+
+    def step():
+        total = proj.projector_loss(g, lpips, target, z, p, None, pcfg)[0]
+        torch.autograd.grad(total, (z, p))
+
+    def generator_half():
+        out = proj._decode(g, z, p, None, None)
+        torch.autograd.grad(out, (z, p), cot)
+
+    def lpips_half():
+        torch.autograd.grad(lpips(img, target).sum(), img)
+
+    saved = torch.backends.cudnn.benchmark
+    out = {}
+    try:
+        for mode in (False, True):
+            torch.backends.cudnn.benchmark = mode
+            key = "autotuned" if mode else "heuristic"
+            out[key] = {name: time_ms(fn, reps=reps, warm=2)
+                        for name, fn in (("step", step),
+                                         ("generator", generator_half),
+                                         ("lpips", lpips_half))}
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    print(f"projector step by layer, f32 batch {PROJECT_BATCH} (events, "
+          f"ms): cuDNN heuristic (the port) {out['heuristic']}; "
+          f"cudnn.benchmark (not used) {out['autotuned']}", flush=True)
+    return out
+
+
+def projector_vs_plain(fb, dev, setup) -> dict:
+    """7b, on one full-width projector step (the objective at the latent
+    statistics' means, as step 0 sees it, and its gradients in z+ and
+    p+), two holds of the kernel against ``fused_blur4_plain``:
+
+    * each of the step's launches (6 forward, 6 adjoint, 6 recompute) is
+      replayed through the plain version on the very inputs it was given,
+      within 1e-5 of the plain output's largest magnitude;
+    * the step's gradients against the same step with ``fused_blur._blur``
+      replaced by the plain version (here only), the image the LPIPS sees
+      pinned to the plain run's in both (its value exactly; the gradient
+      flows through each run's own generator), within 3x a rounding floor
+      or 1e-4 (relative L2).  The floor is the largest change the kernel
+      run shows when z+ and p+ are scaled by 1 + d, d in NUDGES.  This
+      hold is coarse: the generator's leaky ReLUs are kinks, and at this
+      width some of their inputs lie within rounding of 0, so the
+      gradient itself moves by 1e-4 to 1e-3 under a one-ulp change of its
+      inputs, and the two runs differ by rounding."""
+    from transeditor_tpu_torch.invert import projector as proj
+
+    g, lpips, target, stats = setup
+    z_mean, _, p_mean = stats
+    pcfg = proj.ProjectorConfig()
+    decode = proj._decode
+    blur = fb._blur
+
+    def latents(scale: float = 1.0):
+        z = (z_mean.expand(PROJECT_BATCH, *z_mean.shape) * scale).clone()
+        p = (p_mean.expand(PROJECT_BATCH, *p_mean.shape) * scale).clone()
+        return z.requires_grad_(True), p.requires_grad_(True)
+
+    def grads(scale: float = 1.0):
+        def pinned(*args):
+            img = decode(*args)
+            return pin + (img - img.detach())
+
+        z, p = latents(scale)
+        proj._decode = pinned
+        try:
+            total = proj.projector_loss(g, lpips, target, z, p, None,
+                                        pcfg)[0]
+            return [t.detach() for t in torch.autograd.grad(total, (z, p))]
+        finally:
+            proj._decode = decode
+
+    def errors(got, want):
+        return {n: {"l2": ((a - b).norm() / b.norm()).item(),
+                    "max": ((a - b).abs().max() / b.abs().max()).item()}
+                for n, a, b in zip(("z+", "p+"), got, want)}
+
+    calls = []
+
+    def recording(x, taps, pad, scale, bias, act, role):
+        y = blur(x, taps, pad, scale, bias, act, role)
+        calls.append((role, x, taps, pad, scale, bias, act, y))
+        return y
+
+    fb._blur = (lambda x, taps, pad, scale, bias, act, role:
+                fb.fused_blur4_plain(x, taps, pad, scale, bias, act))
+    try:
+        before = fb.launches.value
+        with torch.no_grad():
+            pin = decode(g, *latents(), None, None)
+        plain = grads()
+        torch.cuda.synchronize()
+        check(fb.launches.value == before, "the plain run launched")
+        torch.cuda.synchronize()
+        fb.launches.reset()
+        fb._blur = recording
+        kernel = grads()
+        torch.cuda.synchronize()
+        roles = fb.launches.by_role_path
+    finally:
+        fb._blur = blur
+    ups = g.cfg.log_size - 2
+    check(len(calls) == 3 * ups, f"7b recorded {len(calls)} launches")
+    replay = {}
+    for role, x, taps, pad, scale, bias, act, y in calls:
+        want = fb.fused_blur4_plain(x, taps, pad, scale, bias, act)
+        rel = ((y - want).abs().max() / want.abs().max()).item()
+        check(rel <= 1e-5, f"7b {role} launch {tuple(x.shape)}: {rel} of "
+                           f"the plain output's largest")
+        replay[role] = max(replay.get(role, 0.0), rel)
+    del calls
+    nudged = [grads(1.0 + d) for d in NUDGES]
+    errs = errors(kernel, plain)
+    floors = [errors(n, kernel) for n in nudged]
+    floor = {n: {k: max(f[n][k] for f in floors) for k in ("l2", "max")}
+             for n in errs}
+    want = {r: {"tma": ups} for r in ("forward", "adjoint", "recompute")}
+    check(roles == want, f"7b kernel launches {roles}, want {want}")
+    limits = {n: max(3 * floor[n]["l2"], 1e-4) for n in errs}
+    print(f"projector step card kernel vs plain ({g.cfg.size}px f32 batch "
+          f"{PROJECT_BATCH}): each launch replayed through the plain "
+          f"version, largest error by role (share of the plain output's "
+          f"largest, limit 1e-5) {replay}; gradients in z+ and p+, the "
+          f"LPIPS image pinned to the plain run's: {errs}; rounding floor "
+          f"(the largest over z+, p+ x (1 + d), d in {NUDGES}) {floor}; "
+          f"limits on L2 {limits}; launches {roles}", flush=True)
+    for n, e in errs.items():
+        check(e["l2"] <= limits[n], f"7b {n}: L2 {e['l2']} > {limits[n]}")
+    return {"launch_errors": replay, "errors": errs,
+            "rounding_floor": floor, "limits": limits, "launches": roles,
+            "max_abs_err": max((a - b).abs().max().item()
+                               for a, b in zip(kernel, plain))}
+
+
+def project_cli_phase(fb, dev, root: pathlib.Path, g,
+                      model_argv: list) -> dict:
+    """7c (a main path, counted): ``cli.project.main`` in this process on
+    N_PROJECT_IMAGES PNGs (a reference ``.pt`` holding ``g``'s weights,
+    a random LPIPS) with ``--step 10 --batch 8``, so the tail batch of 1
+    is padded to 8: every output file, latents of shape (9, 16, 512),
+    finite, and the tail's own row (not a padded one) kept."""
+    from transeditor_tpu_torch.cli import project as cli_project
+    from transeditor_tpu_torch.utils.image import load_png, save_png
+
+    data, out = root / "project_pngs", root / "project_out"
+    data.mkdir(parents=True)
+    for i, img in enumerate(smooth_images(N_PROJECT_IMAGES, g.cfg.size,
+                                          seed=2)):
+        save_png(str(data / f"{i:05d}.png"), img)
+    ckpt = root / "g.pt"
+    torch.save({"g_ema": {k: v.cpu() for k, v in g.state_dict().items()}},
+               ckpt)
+    steps = 10
+    argv = ["--ckpt", str(ckpt), "--dataset_dir", str(data), "--step",
+            str(steps), "--batch", str(PROJECT_BATCH), "--output_dir",
+            str(out), *model_argv]
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    cli_project.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fb.launches.by_role_path         # ... and ends here
+
+    n = N_PROJECT_IMAGES
+    names = {f"{k}_{i}.png" for k in ("origin", "project") for i in range(n)}
+    names |= {"latents.npy", "param.npy"}
+    check(set(os.listdir(out)) == names,
+          f"cli.project wrote {sorted(os.listdir(out))}")
+    z, p = np.load(out / "latents.npy"), np.load(out / "param.npy")
+    check(z.shape == p.shape == (n, 16, 512), f"latents {z.shape} {p.shape}")
+    check(np.isfinite(z).all() and np.isfinite(p).all(), "latents finite")
+    check(not np.allclose(z[n - 1], z[n - 2]),
+          "the tail image's latents equal the image before it")
+    proj_img = load_png(str(out / f"project_{n - 1}.png"))
+    check(proj_img.shape == (g.cfg.size, g.cfg.size, 3), str(proj_img.shape))
+    ups = g.cfg.log_size - 2
+    batches = -(-n // PROJECT_BATCH)
+    want = {"forward": {"tma": batches * ups * (steps + 1)},
+            "adjoint": {"tma": batches * ups * steps},
+            "recompute": {"tma": batches * ups * steps}}
+    check(counts == want, f"cli.project launches {counts}, want {want}")
+    print(f"cli project: {n} images at batch {PROJECT_BATCH} (tail of "
+          f"{n % PROJECT_BATCH} padded), {steps} steps a batch, in "
+          f"{wall:.2f} s; all {len(names)} files; latents {z.shape}; "
+          f"fused_blur4 launches {counts}", flush=True)
+    return {"wall_s": wall, "launches": counts, "latents_shape": z.shape}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1440,6 +1855,10 @@ def main() -> int:
     # process keeps paying for its tracing on every launch
     host_us = wrapper_host_us(fb, dev)
     g, gen = generator_phase(fb, dev, card)
+    t7 = time.time()
+    projected = projector_phase(fb, dev, card)
+    torch.cuda.empty_cache()
+    projected["phase_s"] = time.time() - t7
     rows = kernel_times(fb, dev)
     gen["profile"] = [profile_forward(g, dev, b) for b in (1, 64)]
     paths = serve_phase(fb, dev, g)
@@ -1471,6 +1890,19 @@ def main() -> int:
             fb, dev, cli["train"]["state_dir"], with_jpeg)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
+    t7 = time.time()
+    proj_setup, _ = projector_setup(dev)
+    projected["profile"] = profile_projector(dev, proj_setup)
+    projected["split_ms"] = projector_split(dev, proj_setup)
+    projected["kernel_vs_plain"] = projector_vs_plain(fb, dev, proj_setup)
+    try:
+        projected["cli"] = project_cli_phase(fb, dev, out_root,
+                                             proj_setup[0], [])
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    del proj_setup
+    projected["phase_s"] += time.time() - t7
+    print(f"phase 7: {projected['phase_s']:.1f} s", flush=True)
     serve_paths = dict(paths)
     for k, n in cli["serve_state"]["launches"].items():
         serve_paths[k] = serve_paths.get(k, 0) + n
@@ -1488,11 +1920,19 @@ def main() -> int:
         # the main paths, each counted from 0: serving (phase 4),
         # training (5b), the CLI's training (6b), serving its state (6d)
         "launches": sum(serve_paths.values()) + total(trained["main_launches"])
-        + total(cli["train"]["launches"]),
+        + total(cli["train"]["launches"]) + total(projected["launches"])
+        + total(projected["cli"]["launches"]),
         "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
         "cli_train_launches": cli["train"]["launches"],
         "serve_state_launches": cli["serve_state"]["launches"],
+        # the projector (7a, 60 steps) and cli.project (7c), each from 0
+        "project_launches": {"projector": projected["launches"],
+                             "cli": projected["cli"]["launches"]},
+        # 7b: a projector step's gradients in z+ and p+, kernel vs plain
+        "project_launch_errors":
+            projected["kernel_vs_plain"]["launch_errors"],
+        "project_step_grad_errors": projected["kernel_vs_plain"]["errors"],
         "launches_per_train_step": {k: v["launches"]
                                     for k, v in train_counts.items()},
         "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
@@ -1536,6 +1976,7 @@ def main() -> int:
     print(json.dumps({"generator": gen}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"project": projected}), flush=True)
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s",
           flush=True)
     print(f"card: {card}", flush=True)

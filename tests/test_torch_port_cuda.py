@@ -368,3 +368,50 @@ def test_engine_serves_a_train_state_on_card(dev, tmp_path):
         want = state.g_ema(z, z).image
         got = eng.gen(z, z).image
     assert (got - want).abs().max().item() <= 1e-6
+
+
+def test_projector_step_on_card_runs_the_kernel_by_role(dev):
+    """One projector step at 32px on the card: z+ and p+ move, and the
+    step launches the kernel once per up-conv in each role (forward,
+    adjoint, recompute), all on the TMA path; the final decode adds one
+    forward each.  The kernel has no route to its plain version here."""
+    from transeditor_tpu_torch.invert.projector import (ProjectorConfig,
+                                                        estimate_latent_stats,
+                                                        project)
+    from transeditor_tpu_torch.zoo.lpips import LPIPS
+
+    cfg = ModelConfig(size=32, max_channels=64, n_trans=1)
+    g = Generator(cfg, device=dev, seed=0)
+    lpips = LPIPS("vgg", device=dev)
+    with torch.no_grad():
+        target = g(*(torch.randn((2, 16, 512), generator=torch.Generator(
+            dev).manual_seed(s), device=dev) for s in (1, 2))).image
+    stats = estimate_latent_stats(g, n_samples=1000)
+    fused_blur.launches.reset()
+    res = project(g, lpips, target, ProjectorConfig(steps=2, trace_every=1),
+                  stats=stats, device=dev)
+    torch.cuda.synchronize()
+    ups = cfg.log_size - 2
+    assert fused_blur.launches.by_role_path == {
+        "forward": {"tma": 3 * ups}, "adjoint": {"tma": 2 * ups},
+        "recompute": {"tma": 2 * ups}}
+    z0 = stats[0].cpu().numpy()
+    assert float(np.abs(res["z_plus"] - z0).max()) > 1e-3
+    assert np.isfinite(res["image"]).all()
+    assert all(p.grad is None for p in g.parameters())
+
+
+def test_lpips_vgg_card_matches_cpu(dev):
+    """The VGG LPIPS distance on the card (cuDNN, TF32 off) against the
+    same weights on the CPU, within 1e-4 relative."""
+    from transeditor_tpu_torch.zoo.lpips import LPIPS
+
+    cpu = LPIPS("vgg", device="cpu", seed=3)
+    card = LPIPS("vgg", device=dev, seed=3)
+    rng = np.random.RandomState(0)
+    x, y = (torch.from_numpy(rng.uniform(-1, 1, (4, 64, 64, 3)).astype(
+        np.float32)) for _ in range(2))
+    with torch.no_grad():
+        want = cpu(x, y)
+        got = card(x.to(dev), y.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)

@@ -13,7 +13,11 @@ microbatches, with the whole batch's draws sliced per rank
 (``data_parallel.local_rows``), against the single-process step on the
 whole batch:
 the JAX package's contract that a data-parallel step is the global-batch
-step (``tests/test_multihost_2proc.py``).  Parameters, g_ema and both
+step (``tests/test_multihost_2proc.py``).  The path regularisers take
+``batch // path_batch_shrink`` of the GLOBAL batch, as that step does:
+with 3 rows a process and shrink 2 the path batch of 3 cannot be split
+over the 2 processes, and building or running the step raises
+(``worker.path_batch_case``).  Parameters, g_ema and both
 Adam moments agree to 1e-5 of each tensor's largest magnitude, the two
 path-length means to 1e-6 relative (the checks and tolerances are the
 worker's, ``check_stddev`` / ``check_train``).  The two processes sum in
@@ -40,7 +44,8 @@ import torch
 
 import torch_port_dist_worker as worker
 from transeditor_tpu_torch.parallel import data_parallel, multihost
-from transeditor_tpu_torch.train.gan import init_state, make_train_step
+from transeditor_tpu_torch.train.gan import (init_state, local_path_batch,
+                                             make_train_step)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -199,6 +204,31 @@ def test_accumulated_step_two_processes_equals_one(ranks, single_train):
             worker.check_train(got["train"][2], single_train[2])
         except AssertionError as e:
             raise AssertionError(f"rank {r}: {e}") from None
+
+
+def test_uneven_path_batch_raises_on_two_processes(ranks):
+    """Local batch 3, shrink 2, 2 processes: the one-process step on the
+    global batch of 6 takes 3 path samples, which 2 processes cannot
+    hold evenly; the step raises naming the path batch, before it runs
+    (the even case above matches the one-process step)."""
+    for r, got in enumerate(ranks):
+        pb = got["path_batch"]
+        worker.check_path_batch(pb)
+        for key in ("build", "step"):
+            assert "(6 // path_batch_shrink 2 = 3)" in pb[key], (r, pb)
+
+
+@pytest.mark.parametrize("world,local,want", [
+    (1, 3, 1), (1, 1, 1), (2, 4, 2), (4, 2, 1), (2, 3, None),
+    (2, 1, None), (4, 3, None)])
+def test_local_path_batch_is_a_share_of_the_global_path_batch(
+        world, local, want):
+    """shrink 2; None: the global path batch does not split evenly."""
+    if want is None:
+        with pytest.raises(ValueError, match="does not split evenly"):
+            local_path_batch(local * world, 2, world)
+    else:
+        assert local_path_batch(local * world, 2, world) == want
 
 
 @pytest.mark.parametrize("n_accum,want", [

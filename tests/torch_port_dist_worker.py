@@ -11,7 +11,10 @@ Each process joins the group (gloo on the CPU, NCCL on the card), runs
 the multihost helpers, the discriminator's minibatch stddev at global
 batches 8 and 12, and one R1 + path + spatial train step at size 16 on
 global batch 8, in one pass and in two microbatches (each rank takes
-its share of the batch and of the draws), and writes what it got to ``OUT_DIR/rank<r>.pt``.  Then, in one
+its share of the batch and of the draws), checks that a local batch of
+3 with ``path_batch_shrink`` 2 raises (its global path batch does not
+split over the processes), and writes what it got to
+``OUT_DIR/rank<r>.pt``.  Then, in one
 process without a group:
 
     python tests/torch_port_dist_worker.py --compare OUT_DIR [cpu|cuda]
@@ -113,6 +116,35 @@ def train_case(device: str = "cpu", grad_accum: int = 1) -> dict:
     return out
 
 
+def path_batch_case(device: str = "cpu") -> dict:
+    """A local batch of 3 rows a process with ``path_batch_shrink`` 2:
+    the global path batch (3 * world // 2) does not split evenly over
+    the processes.  Building the step for that global batch raises, and
+    a step built for batch 8 raises on 3 rows before it changes the
+    state.  Returns the two messages and whether the state was left as
+    it was."""
+    cfg = ModelConfig(**MODEL)
+    world = multihost.process_count()
+    out = {}
+    try:
+        make_train_step(cfg, TrainConfig(batch_size=3 * world),
+                        device=device)
+    except ValueError as e:
+        out["build"] = str(e)
+    tcfg = TrainConfig(batch_size=8)
+    state = init_state(cfg, tcfg, seed=0, device=device)
+    before = [p.detach().clone() for p in state.g.parameters()]
+    _, _, real, _ = train_inputs()
+    try:
+        make_train_step(cfg, tcfg, device=device)(
+            state, real[:3], torch.Generator(device), do_g_reg=True)
+    except ValueError as e:
+        out["step"] = str(e)
+    out["untouched"] = state.step == 0 and all(
+        torch.equal(a, b) for a, b in zip(before, state.g.parameters()))
+    return out
+
+
 def helpers_case() -> dict:
     rank = multihost.process_index()
     gathered = multihost.all_gather_host(
@@ -139,6 +171,15 @@ def check_stddev(ranks: list, batch: int, want: dict) -> None:
         torch.testing.assert_close(got, want[key], rtol=STDDEV_TOL,
                                    atol=STDDEV_TOL,
                                    msg=f"{key} at batch {batch}")
+
+
+def check_path_batch(got: dict) -> None:
+    """One rank's ``path_batch_case``: building and running the step both
+    raised, naming the path batch, and the state was left as it was."""
+    for key in ("build", "step"):
+        assert "path-length batch" in got.get(key, ""), (key, got)
+        assert "does not split evenly" in got[key], (key, got)
+    assert got["untouched"], got
 
 
 def check_train(got: dict, want: dict) -> float:
@@ -174,6 +215,8 @@ def compare(out_dir: str, device: str) -> None:
     files = sorted(f for f in os.listdir(out_dir) if f.startswith("rank"))
     ranks = [torch.load(os.path.join(out_dir, f), weights_only=False)
              for f in files]
+    for r in ranks:
+        check_path_batch(r["path_batch"])
     for b in STDDEV_BATCHES:
         check_stddev(ranks, b, stddev_case(b, device))
     worst = 0.0
@@ -193,6 +236,7 @@ def main(out_dir: str, device: str) -> None:
     assert multihost.initialize(device=device)
     try:
         got = {"helpers": helpers_case(),
+               "path_batch": path_batch_case(device),
                "stddev": {b: stddev_case(b, device) for b in STDDEV_BATCHES},
                "train": {k: train_case(device, k) for k in GRAD_ACCUM}}
         torch.save(got, os.path.join(

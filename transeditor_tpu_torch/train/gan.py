@@ -112,6 +112,21 @@ def _mean_over(fn: Callable, chunks: list):
     return [g / n for g in grads], {k: v / n for k, v in metrics.items()}
 
 
+def local_path_batch(global_batch: int, shrink: int, world: int) -> int:
+    """This process's rows of the path-length batch: the batch is
+    ``max(1, global_batch // shrink)`` of the GLOBAL batch, as the
+    one-process step takes it, split evenly over ``world`` processes.
+    Raises ``ValueError`` when it does not split evenly."""
+    path_batch = max(1, global_batch // shrink)
+    if path_batch % world:
+        raise ValueError(
+            f"the path-length batch ({global_batch} // path_batch_shrink "
+            f"{shrink} = {path_batch}) does not split evenly over {world} "
+            f"processes; choose a batch whose path batch is a multiple of "
+            f"{world}")
+    return path_batch // world
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     device: str | torch.device | None = None) -> Callable:
     """Build ``train_step(state, real, rng, do_d_reg=False,
@@ -137,11 +152,18 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     microbatches, its 1/world of each); ``real`` is the rank's rows in
     the same layout.
 
+    The path regularisers take ``batch_size // path_batch_shrink`` rows
+    of the global batch, each process its 1/world of them
+    (``local_path_batch``); a ``ValueError`` is raised here, before any
+    step, when they do not split evenly over the processes.
+
     The process group, if any, is read when the step is built.
     """
     dev = resolve_device(device)
     n_accum = max(1, int(tcfg.grad_accum))
-    share = 1.0 / multihost.process_count()   # local share of a global mean
+    world = multihost.process_count()
+    share = 1.0 / world                       # local share of a global mean
+    local_path_batch(tcfg.batch_size, tcfg.path_batch_shrink, world)
 
     def latents(draws, phase, rng, batch, accum=n_accum):
         if draws is not None:
@@ -175,6 +197,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             raise ValueError(f"grad_accum={n_accum} must divide the "
                              f"per-step batch {batch}")
         micro_b = batch // n_accum
+        path_batch = local_path_batch(batch * world, tcfg.path_batch_shrink,
+                                      world)
         metrics = {}
 
         # --- D step: fakes from the current g, no gradient into g
@@ -222,8 +246,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         grads, m = _mean_over(g_phase, list(zip(chunk(zg), chunk(pg))))
         _apply(state.opt_g, params_g, grads)
         metrics.update(m)
-
-        path_batch = max(1, batch // tcfg.path_batch_shrink)
 
         # --- lazy path length, on the stage API
         if do_g_reg:
