@@ -119,8 +119,38 @@ clock comes before the first use of torch.profiler.
      ``--step 10 --batch 8``, so the tail batch of 1 is padded: every
      output file, latents (9, 16, 512), the tail's own row kept.
 
-The phases run in the order 1, 2a, 3, 7a, 2b, 3b, 4, 5a, 5b, 6, then
-7a's profile, 7b, 7c.  The last
+  8. encoder inversion (``train/coach.py``, ``cli/train_encoder.py``,
+     ``cli/encode.py``):
+  8a. the coach at full width (the main path, counted): the 256px
+     ``ModelConfig()`` decoder in float32 with seeded random weights, a
+     seeded random AlexNet LPIPS and IR-SE-50 ArcFace (the ID loss), the
+     default ``GradualStyleEncoder`` (IR-SE-50, 14 + 16 heads, 364.7M
+     parameters), ``CoachConfig()`` at batch 8 with ``use_fake_lambda
+     0.5``, on the decoder's own images for seeded latents: a warm train,
+     fake and eval step, then 10 train steps (both RAdam branches) timed
+     by the host clock between synchronised steps, one fake and one eval
+     step, launches by role and path (6 forward, 6 adjoint, 6 recompute
+     a train step; 6 forward a fake step, for its no-grad decode only; 6
+     forward an eval step; all TMA), peak memory, ``DualSpaceEncoder.
+     encode`` img/s at batch 8, the step's flop count (bound at 67
+     TFLOP/s).  It runs right after 7a, before the first torch.profiler
+     window; after phase 7 the setup is built again for its profile (one
+     train step: busy share, top kernels), 8b and 8c;
+  8b. each of one full-width train step's 18 launches replayed through
+     ``fused_blur4_plain`` on its own inputs (1e-5 of the plain output's
+     largest); and one coach step of a 64px decoder and the default
+     encoder on the card (the kernel, no cuDNN) against the CPU (the
+     plain version): encoder gradients within 3x a rounding floor (the
+     CPU step with the images x (1 + 2**-22)) or 1e-4 (worst per-tensor
+     L2), the parameters after the step within 0.1 lr;
+  8c. ``cli.train_encoder.main`` (a main path, counted) on 9 PNGs for 4
+     steps at batch 8 with ``--val_interval 2 --save_interval 2``
+     (``best_model.pt``, ``ckpt_000002.pt``, two validation grids), then
+     ``cli.encode.main --save_inversions`` from that ``best_model.pt`` at
+     batch 8 (a tail of 1): encoded (9, 16, 512), every PNG, counted.
+
+The phases run in the order 1, 2a, 3, 7a, 8a, 2b, 3b, 4, 5a, 5b, 6, then
+7a's profile, 7b, 7c, 8a's profile, 8b, 8c.  The last
 three lines are the card line, the kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX or of the JAX package.
@@ -1568,11 +1598,12 @@ def projector_step_flops(g, lpips, target, stats) -> int:
 def kernel_table(prof, top: int = 6):
     """(busy us, fused_blur4 us, top kernels) of a torch.profiler run:
     device kernels only (CPU-side ops also carry the device time they
-    launched)."""
+    launched, and a user annotation the span of its kernels)."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(_dev_us(e) for e in events)
     blur_us = sum(_dev_us(e) for e in events if "fused_blur4" in e.key)
     events.sort(key=_dev_us, reverse=True)
@@ -1827,6 +1858,427 @@ def project_cli_phase(fb, dev, root: pathlib.Path, g,
     return {"wall_s": wall, "launches": counts, "latents_shape": z.shape}
 
 
+# ---------------------------------------------------------------- phase 8
+
+COACH_BATCH = 8                    # CoachConfig().batch_size
+COACH_STEPS = 10                   # timed train steps after a warm one
+ENCODE_REPS = 5
+N_ENCODE_IMAGES = 9                # 8c: a batch of 8 and a tail of 1
+CLI_COACH_STEPS = 4                # 8c: val and checkpoint at step 2
+
+
+def coach_setup(dev, coach_kw=None, encoder_kw=None, **cfg_kw) -> dict:
+    """The coach at full width: the f32 ``ModelConfig()`` decoder (seeded
+    random weights, frozen), a seeded random AlexNet LPIPS, a seeded
+    random IR-SE-50 ArcFace for the ID loss, the latent average of 10k
+    mapped draws, ``CoachConfig(use_fake_lambda=0.5)`` at batch 8, its
+    steps (``make_coach``) and a fresh state (the default
+    ``GradualStyleEncoder``, torch's initialisers drawn from seed 2), and
+    8 real images: the decoder's own for seeded latents.  ``coach_kw``,
+    ``encoder_kw`` and ``cfg_kw`` narrow it for a CPU rehearsal."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.models.irse import ArcFaceBackbone, init_weights
+    from transeditor_tpu_torch.models.psp import GradualStyleEncoder, PSPModel
+    from transeditor_tpu_torch.train import coach
+    from transeditor_tpu_torch.zoo.lpips import LPIPS
+
+    cfg = ModelConfig(**cfg_kw)
+    ccfg = coach.CoachConfig(batch_size=COACH_BATCH, use_fake_lambda=0.5,
+                             **(coach_kw or {}))
+    g = Generator(cfg, device=dev, seed=0).eval()
+    lpips = LPIPS("alex", device=dev, seed=0)
+    arc = init_weights(ArcFaceBackbone(), torch.Generator().manual_seed(1))
+    id_loss = (coach.make_arcface_id_loss(arc.to(dev))
+               if ccfg.id_lambda > 0 else None)
+    avg = PSPModel(None, g).estimate_latent_avg(
+        torch.Generator(dev).manual_seed(1))
+    init_fn, train, evals, fake = coach.make_coach(cfg, ccfg, g, lpips,
+                                                   id_loss, avg)
+    enc = init_weights(GradualStyleEncoder(**(encoder_kw or {})),
+                       torch.Generator().manual_seed(2))
+    z, p = codes(COACH_BATCH, cfg.style_dim, seed=6)
+    with torch.no_grad():
+        real = g(z.to(dev), p.to(dev)).image.float()
+    return {"cfg": cfg, "ccfg": ccfg, "g": g, "avg": avg, "train": train,
+            "eval": evals, "fake": fake, "state": init_fn(enc),
+            "real": real}
+
+
+def coach_step_flops(setup) -> int:
+    """The floating-point operations of one coach train step (its
+    convolutions and matmuls as torch.utils.flop_counter counts them:
+    forward and backward through the encoder, the decoder, the LPIPS and
+    ArcFace; the kernel's blur, the elementwise work and the optimizer
+    are not in it).  It runs one step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        setup["train"](setup["state"], setup["real"])
+    return counter.get_total_flops()
+
+
+def coach_phase(fb, dev, card: str, setup) -> dict:
+    """8a (a main path, counted): one warm train, fake and eval step, then
+    COACH_STEPS train steps (steps 2-11: RAdam's unrectified branch and
+    its rectified one from step 6), each timed by the host clock between
+    two synchronisations, one fake step and one eval step, each counted
+    by role and path; peak memory over the steps; ``DualSpaceEncoder.
+    encode`` img/s at batch 8; the step's flop count and its float32
+    bound.  Runs before the first torch.profiler window, as every
+    host-clock timing does."""
+    from transeditor_tpu_torch.invert.dual_space import DualSpaceEncoder
+
+    train, evals, fake = setup["train"], setup["eval"], setup["fake"]
+    state, real = setup["state"], setup["real"]
+    ups = setup["cfg"].log_size - 2
+    rng = torch.Generator(dev).manual_seed(4)
+    _, first, _ = train(state, real)              # warm: cuDNN, allocator
+    fake(state, rng=rng)
+    evals(state, real)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fb.launches.reset()                           # the main path starts here
+    stamps = [time.perf_counter()]
+    for _ in range(COACH_STEPS):
+        state, logs, inv = train(state, real)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    train_counts = fb.launches.by_role_path
+    fb.launches.reset()
+    t0 = time.perf_counter()
+    _, fake_loss = fake(state, rng=rng)
+    torch.cuda.synchronize()
+    fake_ms = (time.perf_counter() - t0) * 1e3
+    fake_counts = fb.launches.by_role_path
+    fb.launches.reset()
+    t0 = time.perf_counter()
+    vlogs, vinv = evals(state, real)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_counts = fb.launches.by_role_path        # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = (np.diff(stamps) * 1e3).tolist()
+
+    want = {r: {"tma": ups * COACH_STEPS}
+            for r in ("forward", "adjoint", "recompute")}
+    check(train_counts == want, f"coach train launches {train_counts}, "
+                                f"want {want}")
+    check(fake_counts == {"forward": {"tma": ups}},
+          f"coach fake launches {fake_counts}")
+    check(eval_counts == {"forward": {"tma": ups}},
+          f"coach eval launches {eval_counts}")
+    values = [float(v) for v in (*logs.values(), *vlogs.values(),
+                                 fake_loss, first["loss"])]
+    check(all(np.isfinite(values)), f"coach losses {logs} {vlogs}")
+    check(state.step == COACH_STEPS + 1, f"coach step {state.step}")
+    check(tuple(inv.shape) == tuple(real.shape)
+          and bool(torch.isfinite(inv).all()), "coach inversions")
+
+    dse = DualSpaceEncoder(setup["g"], state.encoder, setup["avg"])
+    z, p = dse.encode(real)                       # warm
+    check(z.shape == p.shape == (COACH_BATCH, 16, setup["cfg"].style_dim)
+          and np.isfinite(z).all(), f"encode {z.shape}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENCODE_REPS):
+        dse.encode(real)
+    encode_s = (time.perf_counter() - t0) / ENCODE_REPS
+    flops = coach_step_flops(setup)
+    out = {"batch": COACH_BATCH, "steps": COACH_STEPS, "step_ms": step_ms,
+           "ms_per_step_median": float(np.median(step_ms)),
+           "ms_per_step_mean": float(np.mean(step_ms)),
+           "fake_step_ms": fake_ms, "eval_step_ms": eval_ms,
+           "encode_img_per_s": COACH_BATCH / encode_s,
+           "loss_first": float(first["loss"]), "loss_last": float(logs["loss"]),
+           "logs": {k: float(v) for k, v in logs.items()},
+           "launches": {"train": train_counts, "fake": fake_counts,
+                        "eval": eval_counts},
+           "launches_per_step": {
+               "train": {r: n["tma"] / COACH_STEPS
+                         for r, n in train_counts.items()},
+               "fake": fake_counts, "eval": eval_counts},
+           "peak_bytes": peak, "peak_bytes_over_base": peak - base,
+           "flops_per_step": flops,
+           "bound_ms": flops / F32_FLOPS_PER_S * 1e3}
+    print(f"coach: {setup['cfg'].size}px f32 batch {COACH_BATCH}, default "
+          f"encoder (IR-SE-50, 14 + 16 heads), ID + L2 + LPIPS-alex; "
+          f"{COACH_STEPS} train steps {out['ms_per_step_median']:.2f} ms "
+          f"per step (median; mean {out['ms_per_step_mean']:.2f}, host "
+          f"clock between synchronised steps) on {card}; fake step "
+          f"{fake_ms:.2f} ms, eval step {eval_ms:.2f} ms; "
+          f"DualSpaceEncoder.encode {out['encode_img_per_s']:.1f} img/s at "
+          f"batch {COACH_BATCH}; loss {out['loss_first']:.4f} -> "
+          f"{out['loss_last']:.4f}; fused_blur4 launches per step "
+          f"{out['launches_per_step']}; peak memory allocated "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB over "
+          f"what was allocated before); {flops / 1e12:.3f} TFLOP a train "
+          f"step (torch.utils.flop_counter), bound {out['bound_ms']:.2f} ms "
+          f"at {F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s float32", flush=True)
+    return out
+
+
+def profile_coach(dev, setup) -> dict:
+    """8a's profile: one train step (after a warm one) under
+    torch.profiler; the busy share is summed kernel time over the step's
+    wall time, a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    train, state, real = setup["train"], setup["state"], setup["real"]
+    train(state, real)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(state, real)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, blur_us, rows = kernel_table(prof, top=8)
+    check(busy_us > 0, "the coach profile shows no device time")
+    # the optimizer's annotation: the device span of the Ranger update
+    opt_us = sum(_dev_us(e) for e in prof.key_averages()
+                 if getattr(e, "is_user_annotation", False)
+                 and "Ranger" in e.key)
+    print(f"profile coach train step, f32 batch {COACH_BATCH}: device busy "
+          f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+          f"({busy_us / wall_us:.1%}); fused_blur4 {blur_us / 1e3:.3f} ms; "
+          f"the Ranger update spans {opt_us / 1e3:.3f} ms of the device's "
+          f"timeline", flush=True)
+    for r in rows:
+        print(f"  {r['ms']:9.3f} ms  x{r['calls']:<4d} {r['name']}",
+              flush=True)
+    return {"busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+            "busy_share": busy_us / wall_us, "ranger_span_ms": opt_us / 1e3,
+            "fused_blur4_ms": blur_us / 1e3, "top": rows}
+
+
+def coach_vs_plain(fb, dev, setup) -> dict:
+    """8b, first hold: each ``fused_blur4`` launch of one full-width train
+    step (6 forward, 6 adjoint, 6 recompute) replayed through
+    ``fused_blur4_plain`` on the very inputs it was given, within 1e-5 of
+    the plain output's largest magnitude."""
+    blur = fb._blur
+    calls = []
+
+    def recording(x, taps, pad, scale, bias, act, role):
+        y = blur(x, taps, pad, scale, bias, act, role)
+        calls.append((role, x, taps, pad, scale, bias, act, y))
+        return y
+
+    torch.cuda.synchronize()
+    fb.launches.reset()
+    fb._blur = recording
+    try:
+        setup["train"](setup["state"], setup["real"])
+        torch.cuda.synchronize()
+    finally:
+        fb._blur = blur
+    roles = fb.launches.by_role_path
+    ups = setup["cfg"].log_size - 2
+    want = {r: {"tma": ups} for r in ("forward", "adjoint", "recompute")}
+    check(roles == want, f"8b launches {roles}, want {want}")
+    replay, worst_abs = {}, 0.0
+    for role, x, taps, pad, scale, bias, act, y in calls:
+        ref = fb.fused_blur4_plain(x, taps, pad, scale, bias, act)
+        err = (y - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        check(rel <= 1e-5, f"8b {role} launch {tuple(x.shape)}: {rel} of "
+                           f"the plain output's largest")
+        replay[role] = max(replay.get(role, 0.0), rel)
+        worst_abs = max(worst_abs, err)
+    del calls
+    print(f"coach train step, each of its {3 * ups} fused_blur4 launches "
+          f"replayed through the plain version: largest error by role "
+          f"(share of the plain output's largest, limit 1e-5) {replay}; "
+          f"launches {roles}", flush=True)
+    return {"launch_errors": replay, "max_abs_err": worst_abs,
+            "launches": roles}
+
+
+def coach_card_vs_cpu(fb, dev, batch: int = 4, encoder_kw=None,
+                      **cfg_kw) -> dict:
+    """8b, second hold: one coach train step of a 64px decoder (max
+    channels 128, two interaction blocks) and the default encoder on the
+    card (the kernel) and on the CPU (the plain version), same weights
+    and images, L2 + LPIPS-alex (the ID loss needs 224px).  The checked
+    card run computes its convolutions without cuDNN, as 5b's does.
+    Held: every encoder gradient (worst per-tensor L2 error) within 3x
+    a rounding floor (the CPU step with the images scaled by 1 + 2**-22),
+    or 1e-4 where the floor is smaller; the losses likewise; every
+    parameter after the Ranger update within 0.1 lr.  ``encoder_kw`` and
+    ``cfg_kw`` narrow it for a CPU rehearsal."""
+    import copy
+
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.models.irse import init_weights
+    from transeditor_tpu_torch.models.psp import GradualStyleEncoder, PSPModel
+    from transeditor_tpu_torch.train import coach
+    from transeditor_tpu_torch.zoo.lpips import LPIPS
+
+    cfg = ModelConfig(**(cfg_kw or dict(size=64, max_channels=128,
+                                         n_trans=2)))
+    size = cfg.size
+    ccfg = coach.CoachConfig(batch_size=batch, id_lambda=0.0)
+    cpu = torch.device("cpu")
+    g = Generator(cfg, device=cpu, seed=0).eval()
+    lpips = LPIPS("alex", device=cpu, seed=0)
+    avg = PSPModel(None, g).estimate_latent_avg(0, n_samples=2000)
+    enc = init_weights(GradualStyleEncoder(**(encoder_kw or {})),
+                       torch.Generator().manual_seed(2))
+    real = torch.from_numpy(smooth_images(batch, size, seed=9)).float()
+    real = real / 127.5 - 1.0
+
+    def run(d, scale=1.0, keep_params=False):
+        init_fn, train, _, _ = coach.make_coach(
+            cfg, ccfg, copy.deepcopy(g).to(d), copy.deepcopy(lpips).to(d),
+            None, [a.to(d) for a in avg])
+        state = init_fn(copy.deepcopy(enc))
+        _, logs, _ = train(state, (real * scale).to(d))
+        named = list(state.encoder.named_parameters())
+        return ({k: float(v) for k, v in logs.items()},
+                {n: p.grad.detach().cpu() for n, p in named},
+                {n: p.detach().cpu() for n, p in named} if keep_params
+                else None)
+
+    def errors(got, want):
+        top = max(w.norm().item() for w in want.values())
+        return max(((got[n] - w).norm().item() / max(w.norm().item(),
+                                                     1e-6 * top), n)
+                   for n, w in want.items())
+
+    m_cpu, g_cpu, p_cpu = run(cpu, keep_params=True)
+    m_nudged, g_nudged, _ = run(cpu, 1.0 + 2.0 ** -22)
+    m_cudnn, g_cudnn, _ = run(dev)
+    torch.backends.cudnn.enabled = False
+    try:
+        torch.cuda.synchronize()
+        fb.launches.reset()
+        m_card, g_card, p_card = run(dev, keep_params=True)
+        torch.cuda.synchronize()
+        roles = fb.launches.by_role_path
+    finally:
+        torch.backends.cudnn.enabled = True
+    ups = cfg.log_size - 2
+    want = {r: {"tma": ups} for r in ("forward", "adjoint", "recompute")}
+    check(roles == want, f"8b card-vs-CPU launches {roles}, want {want}")
+    err, at = errors(g_card, g_cpu)
+    floor, floor_at = errors(g_nudged, g_cpu)
+    err_cudnn, _ = errors(g_cudnn, g_cpu)
+    limit = max(3 * floor, 1e-4)
+    param_err = max((p_card[n] - p).abs().max().item()
+                    for n, p in p_cpu.items())
+    metrics = {k: {"card": m_card[k], "cpu": m_cpu[k],
+                   "nudged_cpu": m_nudged[k], "card_cudnn": m_cudnn[k]}
+               for k in m_cpu}
+    print(f"coach step card vs CPU ({size}px decoder, "
+          f"{'default encoder' if not encoder_kw else encoder_kw}, "
+          f"batch {batch}, L2 + LPIPS-alex): losses {metrics}; encoder "
+          f"gradients, worst per-tensor L2: kernel, no cuDNN {err:.3e} "
+          f"({at}); with cuDNN (not checked) {err_cudnn:.3e}; rounding "
+          f"floor (CPU, images x (1 + 2**-22)) {floor:.3e} ({floor_at}); "
+          f"limit {limit:.3e}; parameters after the step, largest "
+          f"difference {param_err:.3e} (limit 0.1 lr = "
+          f"{0.1 * ccfg.learning_rate:.1e}); launches {roles}", flush=True)
+    check(err <= limit, f"8b coach gradients: L2 {err} ({at}) > {limit}")
+    check(param_err <= 0.1 * ccfg.learning_rate,
+          f"8b coach parameters: {param_err}")
+    for k, m in metrics.items():
+        e, f = abs(m["card"] - m["cpu"]), abs(m["nudged_cpu"] - m["cpu"])
+        check(e <= max(3 * f, 1e-4 * abs(m["cpu"]) + 1e-6), f"8b {k}: {m}")
+    return {"grad_l2": err, "grad_l2_at": at, "grad_l2_cudnn": err_cudnn,
+            "rounding_floor": floor, "limit": limit, "param_err": param_err,
+            "metrics": metrics, "launches": roles}
+
+
+def encoder_cli_phase(fb, dev, root: pathlib.Path, g,
+                      model_argv: list) -> dict:
+    """8c (a main path, counted): ``cli.train_encoder.main`` in this
+    process on N_ENCODE_IMAGES PNGs (train and validation folder alike;
+    a reference ``.pt`` holding ``g``'s weights; random LPIPS, no
+    ArcFace) for CLI_COACH_STEPS steps at batch 8 with ``--val_interval
+    2 --save_interval 2``: ``best_model.pt``, ``ckpt_000002.pt`` and the
+    validation grids; then ``cli.encode.main --save_inversions`` from that
+    ``best_model.pt`` at batch 8 (a tail of 1): encoded_z / encoded_p of
+    shape (9, 16, 512), finite, and every inversion PNG.  Launches by
+    role are counted around each CLI."""
+    import warnings
+
+    from transeditor_tpu_torch.cli import encode as cli_encode
+    from transeditor_tpu_torch.cli import train_encoder as cli_train
+    from transeditor_tpu_torch.utils.image import load_png, save_png
+
+    data, exp, out = root / "coach_pngs", root / "coach_exp", root / "enc"
+    data.mkdir(parents=True)
+    size, n = g.cfg.size, N_ENCODE_IMAGES
+    for i, img in enumerate(smooth_images(n, size, seed=3)):
+        save_png(str(data / f"{i:05d}.png"), img)
+    ckpt = root / "g_coach.pt"
+    torch.save({"g_ema": {k: v.cpu() for k, v in g.state_dict().items()}},
+               ckpt)
+    argv = ["--ckpt", str(ckpt), "--dataset_dir", str(data),
+            "--test_dataset_dir", str(data), "--exp_dir", str(exp),
+            "--max_steps", str(CLI_COACH_STEPS), "--batch_size",
+            str(COACH_BATCH), "--val_interval", "2", "--save_interval", "2",
+            *model_argv]
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():           # random LPIPS, no ArcFace
+        warnings.simplefilter("ignore", UserWarning)
+        cli_train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = fb.launches.by_role_path   # ... and ends here
+    names = sorted(os.listdir(exp))
+    check(names == ["best_model.pt", "ckpt_000002.pt", "logs",
+                    "val_000000.png", "val_000002.png"],
+          f"cli.train_encoder wrote {names}")
+    ups = g.cfg.log_size - 2
+    evals = 2 * -(-n // COACH_BATCH)          # 2 validations of 2 batches
+    want = {"forward": {"tma": ups * (CLI_COACH_STEPS + evals)},
+            "adjoint": {"tma": ups * CLI_COACH_STEPS},
+            "recompute": {"tma": ups * CLI_COACH_STEPS}}
+    check(train_counts == want,
+          f"cli.train_encoder launches {train_counts}, want {want}")
+
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    cli_encode.main(["--decoder_ckpt", str(ckpt), "--encoder_ckpt",
+                     str(exp / "best_model.pt"), "--data_dir", str(data),
+                     "--out_dir", str(out), "--batch", str(COACH_BATCH),
+                     "--save_inversions", *model_argv])
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    encode_counts = fb.launches.by_role_path  # ... and ends here
+    batches = -(-n // COACH_BATCH)
+    check(encode_counts == {"forward": {"tma": ups * batches}},
+          f"cli.encode launches {encode_counts}")
+    files = {f"inversion_{i}.png" for i in range(n)}
+    files |= {"encoded_z.npy", "encoded_p.npy"}
+    check(set(os.listdir(out)) == files,
+          f"cli.encode wrote {sorted(os.listdir(out))}")
+    z, p = np.load(out / "encoded_z.npy"), np.load(out / "encoded_p.npy")
+    dim = g.cfg.style_dim
+    check(z.shape == p.shape == (n, 16, dim) and z.dtype == np.float32,
+          f"encoded {z.shape} {p.shape} {z.dtype}")
+    check(np.isfinite(z).all() and np.isfinite(p).all(), "encoded finite")
+    check(load_png(str(out / f"inversion_{n - 1}.png")).shape
+          == (size, size, 3), "inversion png")
+    print(f"cli train_encoder: {CLI_COACH_STEPS} steps at batch "
+          f"{COACH_BATCH} with validation at steps 0 and 2 in "
+          f"{train_s:.2f} s, wrote {names}, fused_blur4 launches "
+          f"{train_counts}; cli encode --save_inversions: {n} images at "
+          f"batch {COACH_BATCH} (a tail of {n % COACH_BATCH}) in "
+          f"{encode_s:.2f} s, encoded {z.shape}, launches {encode_counts}",
+          flush=True)
+    return {"train_s": train_s, "encode_s": encode_s,
+            "launches": {"train_encoder": train_counts,
+                         "encode": encode_counts}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1859,6 +2311,12 @@ def main() -> int:
     projected = projector_phase(fb, dev, card)
     torch.cuda.empty_cache()
     projected["phase_s"] = time.time() - t7
+    t8 = time.time()
+    setup = coach_setup(dev)
+    coached = coach_phase(fb, dev, card, setup)
+    del setup
+    torch.cuda.empty_cache()
+    coached["phase_s"] = time.time() - t8
     rows = kernel_times(fb, dev)
     gen["profile"] = [profile_forward(g, dev, b) for b in (1, 64)]
     paths = serve_phase(fb, dev, g)
@@ -1903,6 +2361,21 @@ def main() -> int:
     del proj_setup
     projected["phase_s"] += time.time() - t7
     print(f"phase 7: {projected['phase_s']:.1f} s", flush=True)
+    t8 = time.time()
+    setup = coach_setup(dev)
+    coached["profile"] = profile_coach(dev, setup)
+    coached["kernel_vs_plain"] = coach_vs_plain(fb, dev, setup)
+    g_coach = setup["g"]
+    del setup
+    torch.cuda.empty_cache()
+    coached["card_vs_cpu"] = coach_card_vs_cpu(fb, dev)
+    try:
+        coached["cli"] = encoder_cli_phase(fb, dev, out_root, g_coach, [])
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    del g_coach
+    coached["phase_s"] += time.time() - t8
+    print(f"phase 8: {coached['phase_s']:.1f} s", flush=True)
     serve_paths = dict(paths)
     for k, n in cli["serve_state"]["launches"].items():
         serve_paths[k] = serve_paths.get(k, 0) + n
@@ -1921,7 +2394,9 @@ def main() -> int:
         # training (5b), the CLI's training (6b), serving its state (6d)
         "launches": sum(serve_paths.values()) + total(trained["main_launches"])
         + total(cli["train"]["launches"]) + total(projected["launches"])
-        + total(projected["cli"]["launches"]),
+        + total(projected["cli"]["launches"])
+        + sum(total(c) for c in coached["launches"].values())
+        + sum(total(c) for c in coached["cli"]["launches"].values()),
         "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
         "cli_train_launches": cli["train"]["launches"],
@@ -1933,10 +2408,19 @@ def main() -> int:
         "project_launch_errors":
             projected["kernel_vs_plain"]["launch_errors"],
         "project_step_grad_errors": projected["kernel_vs_plain"]["errors"],
+        # the coach (8a: 10 train steps, one fake and one eval step) and
+        # its CLIs (8c: cli.train_encoder, cli.encode), each from 0
+        "coach_launches": {**coached["launches"],
+                           **coached["cli"]["launches"]},
+        "coach_launches_per_step": coached["launches_per_step"],
+        # 8b: a coach step's launches replayed through the plain version
+        "coach_launch_errors": coached["kernel_vs_plain"]["launch_errors"],
+        "coach_step_grad_l2_card_vs_cpu": coached["card_vs_cpu"]["grad_l2"],
         "launches_per_train_step": {k: v["launches"]
                                     for k, v in train_counts.items()},
         "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
                            grad_errs["max_abs_err"],
+                           coached["kernel_vs_plain"]["max_abs_err"],
                            *(r["max_abs_err"] for r in rows)),
         "max_err_f32": errs["max_err_f32"],
         "max_err_bf16": max(errs["max_err_bf16"],
@@ -1977,6 +2461,7 @@ def main() -> int:
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"project": projected}), flush=True)
+    print(json.dumps({"coach": coached}), flush=True)
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s",
           flush=True)
     print(f"card: {card}", flush=True)

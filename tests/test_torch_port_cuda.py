@@ -415,3 +415,55 @@ def test_lpips_vgg_card_matches_cpu(dev):
         want = cpu(x, y)
         got = card(x.to(dev), y.to(dev)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_irse_card_matches_cpu(dev, train):
+    """The IR-SE-50 ArcFace (112px) on the card (cuDNN, TF32 off) against
+    the same weights on the CPU, in eval mode and in train mode (batch 8,
+    with the running statistics it updates), within 1e-4 of the largest
+    magnitude."""
+    from transeditor_tpu_torch.models.irse import ArcFaceBackbone, init_weights
+
+    cpu = init_weights(ArcFaceBackbone(), torch.Generator().manual_seed(0))
+    card = ArcFaceBackbone()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    cpu.train(train)
+    card.train(train)
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -1, 1, (8, 112, 112, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * top
+    for k, v in cpu.state_dict().items():
+        if "running" in k:
+            got_v = card.state_dict()[k].cpu()
+            assert (got_v - v).abs().max().item() <= 1e-4 * max(
+                v.abs().max().item(), 1e-3), k
+
+
+def test_ranger_step_card_matches_cpu(dev):
+    """Eight Ranger steps (Lookahead syncing at step 6) on the card
+    against the CPU, same gradients: parameters within 1e-6 of each
+    tensor's largest magnitude (RAdam's rho_t is computed on the host
+    either way)."""
+    from transeditor_tpu_torch.train.ranger import ranger
+
+    g = torch.Generator().manual_seed(0)
+    shapes = [(64, 32, 3, 3), (128, 64), (128,)]
+    params = [torch.randn(s, generator=g) * 0.1 for s in shapes]
+    cpu = [p.clone().requires_grad_(True) for p in params]
+    card = [p.to(dev).requires_grad_(True) for p in params]
+    opts = [ranger(cpu, 1e-2), ranger(card, 1e-2)]
+    for _ in range(8):
+        grads = [torch.randn(s, generator=g) for s in shapes]
+        for ps, opt in zip((cpu, card), opts):
+            for p, gr in zip(ps, grads):
+                p.grad = gr.to(p.device)
+            opt.step()
+    for a, b in zip(card, cpu):
+        err = (a.detach().cpu() - b.detach()).abs().max().item()
+        assert err <= 1e-6 * b.abs().max().item()

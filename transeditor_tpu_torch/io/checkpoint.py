@@ -9,6 +9,10 @@ state (g, d, g_ema, both optimizers, the step and the two path-length
 means) in one ``torch.save`` file a step, ``<ckpt_dir>/<step:06d>.pt``.
 As in the JAX package (``cli/train_gan.py:114-119``), checkpoint ``i``
 is the state after step ``i``, so a resumed run starts at ``i + 1``.
+
+``save_coach_state`` / ``restore_coach_state`` keep the encoder coach's
+state (``train/coach.py``) in one ``torch.save`` file; the JAX coach's
+orbax directories are not read (the port has no JAX).
 """
 
 from __future__ import annotations
@@ -122,3 +126,60 @@ def restore_train_state(ckpt_dir: str, template: Any,
     template.mean_spatial_path_length = \
         bundle["mean_spatial_path_length"].to(dev)
     return template, step
+
+
+# ---------------------------------------------------------------------
+# coach checkpoints (the JAX CLI writes orbax directories ``best_model``
+# and ``ckpt_{step:06d}``; the port writes ``best_model.pt`` and
+# ``ckpt_{step:06d}.pt``, one torch.save file each)
+
+def save_coach_state(path: str, state: Any) -> str:
+    """Write a ``train.coach.CoachState`` (encoder state dict with its
+    BatchNorm buffers, optimizer state dict, step, best validation loss)
+    to ``path``, whole or not at all (written beside, then renamed)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    bundle = {"encoder": state.encoder.state_dict(),
+              "optimizer": state.optimizer.state_dict(),
+              "step": int(state.step),
+              "best_val_loss": float(state.best_val_loss)}
+    tmp = path + ".tmp"
+    torch.save(bundle, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def read_torch_file(path: str) -> Dict[str, Any]:
+    """``torch.load`` of ``path`` on the CPU.  A directory, as the JAX
+    coach's orbax checkpoints are, raises ``ValueError`` naming the
+    format: the port has no JAX to read it."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, an orbax checkpoint of the JAX "
+            f"package's coach? The PyTorch port reads torch.save files "
+            f"(a pSp .pt / .pth, or its own best_model.pt / ckpt_*.pt)")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def is_coach_bundle(bundle: Dict[str, Any]) -> bool:
+    return "encoder" in bundle and "optimizer" in bundle
+
+
+def load_coach_bundle(path: str) -> Dict[str, Any]:
+    """The dict ``save_coach_state`` wrote (CPU tensors)."""
+    bundle = read_torch_file(path)
+    if not is_coach_bundle(bundle):
+        raise ValueError(f"{path} is not a coach checkpoint "
+                         f"(keys: {sorted(bundle)})")
+    return bundle
+
+
+def restore_coach_state(path: str, template: Any):
+    """Load ``path`` into ``template`` (a ``CoachState`` of the same
+    encoder shape, e.g. from ``make_coach``'s ``init_fn``), in place, on
+    its device.  Returns the state."""
+    bundle = load_coach_bundle(path)
+    template.encoder.load_state_dict(bundle["encoder"], strict=True)
+    template.optimizer.load_state_dict(bundle["optimizer"])
+    template.step = bundle["step"]
+    template.best_val_loss = bundle["best_val_loss"]
+    return template

@@ -19,7 +19,10 @@ plus the buffers the reference registers (``token`` and
 ``token_spatial`` identities, ``blur.kernel`` / ``upsample.kernel``,
 ``noises.noise_i``, the discriminator's blur ``kernel``s), so the
 results load into ``Generator`` and ``Discriminator`` with
-``strict=True``.
+``strict=True``.  The encoder zoo (IR-SE trunks, ArcFace, the pSp
+encoders) maps flax variables, ``params`` and ``batch_stats``, to the
+InsightFace / pSp layouts (``transeditor_tpu/io/zoo_port.py`` read
+backwards).
 """
 
 from __future__ import annotations
@@ -160,3 +163,138 @@ def discriminator_state_dict_from_jax(params_np: Dict[str, Any],
     _lin(sd, "final_linear.1", p["final_linear_1"])
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------
+# the encoder zoo: flax variables ({'params', 'batch_stats'}, numpy
+# leaves) -> InsightFace / pSp-layout state dicts (conv kernels HWIO ->
+# OIHW, Dense / EqualLinear kernels [in, out] -> [out, in]; flax
+# BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
+# running_var, num_batches_tracked 0)
+
+def _conv_oihw(w) -> np.ndarray:
+    return np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1))
+
+
+def _batch_norm(sd, prefix, params, stats):
+    sd[f"{prefix}.weight"] = np.asarray(params["scale"], np.float32)
+    sd[f"{prefix}.bias"] = np.asarray(params["bias"], np.float32)
+    sd[f"{prefix}.running_mean"] = np.asarray(stats["mean"], np.float32)
+    sd[f"{prefix}.running_var"] = np.asarray(stats["var"], np.float32)
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _conv_bias(sd, prefix, tree):
+    sd[f"{prefix}.weight"] = _conv_oihw(tree["kernel"])
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = np.asarray(tree["bias"], np.float32)
+
+
+def _torch_sd(sd) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _irse_trunk(sd, params, stats):
+    """models/irse.py::IRSEBackbone ('trunk' subtree) -> input_layer.*,
+    body.{i}.*; the unit count and SE come from the tree."""
+    sd["input_layer.0.weight"] = _conv_oihw(params["input_conv"]["conv"]
+                                            ["kernel"])
+    _batch_norm(sd, "input_layer.1", params["input_bn"]["bn"],
+                stats["input_bn"]["bn"])
+    sd["input_layer.2.weight"] = np.asarray(params["input_prelu"]["alpha"],
+                                            np.float32)
+    i = 0
+    while f"body_{i}" in params:
+        bp, bs, pre = params[f"body_{i}"], stats[f"body_{i}"], f"body.{i}"
+        if "shortcut_conv" in bp:
+            sd[f"{pre}.shortcut_layer.0.weight"] = _conv_oihw(
+                bp["shortcut_conv"]["conv"]["kernel"])
+            _batch_norm(sd, f"{pre}.shortcut_layer.1",
+                        bp["shortcut_bn"]["bn"], bs["shortcut_bn"]["bn"])
+        _batch_norm(sd, f"{pre}.res_layer.0", bp["res_bn1"]["bn"],
+                    bs["res_bn1"]["bn"])
+        sd[f"{pre}.res_layer.1.weight"] = _conv_oihw(
+            bp["res_conv1"]["conv"]["kernel"])
+        sd[f"{pre}.res_layer.2.weight"] = np.asarray(
+            bp["res_prelu"]["alpha"], np.float32)
+        sd[f"{pre}.res_layer.3.weight"] = _conv_oihw(
+            bp["res_conv2"]["conv"]["kernel"])
+        _batch_norm(sd, f"{pre}.res_layer.4", bp["res_bn2"]["bn"],
+                    bs["res_bn2"]["bn"])
+        if "se" in bp:
+            for fc in ("fc1", "fc2"):
+                sd[f"{pre}.res_layer.5.{fc}.weight"] = _conv_oihw(
+                    bp["se"][fc]["conv"]["kernel"])
+        i += 1
+
+
+def irse_state_dict_from_jax(variables: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX ``IRSEBackbone`` variables -> the port's ``IRSEBackbone``
+    state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _irse_trunk(sd, variables["params"], variables["batch_stats"])
+    return _torch_sd(sd)
+
+
+def arcface_state_dict_from_jax(variables: Dict[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``ArcFaceBackbone`` variables -> the port's ``ArcFaceBackbone``
+    state dict (``output_layer.{0,3,4}``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    _irse_trunk(sd, p["trunk"], s["trunk"])
+    _batch_norm(sd, "output_layer.0", p["out_bn1"]["bn"], s["out_bn1"]["bn"])
+    _lin(sd, "output_layer.3", p["out_linear"])
+    _batch_norm(sd, "output_layer.4", p["out_bn2"], s["out_bn2"])
+    return _torch_sd(sd)
+
+
+def _style_block(sd, prefix, tree):
+    n = 0
+    while f"conv{n}" in tree:
+        _conv_bias(sd, f"{prefix}.convs.{2 * n}", tree[f"conv{n}"])
+        n += 1
+    _lin(sd, f"{prefix}.linear", tree["linear"])
+
+
+def gradual_style_encoder_state_dict_from_jax(variables: Dict[str, Any]
+                                              ) -> Dict[str, torch.Tensor]:
+    """JAX ``GradualStyleEncoder`` variables (any head counts) -> the
+    port's ``GradualStyleEncoder`` state dict (pSp layout, no
+    ``encoder.`` prefix)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    _irse_trunk(sd, p["trunk"], s["trunk"])
+    for kind, name in (("style", "styles"), ("spatial", "spatials")):
+        j = 0
+        while f"{kind}_{j}" in p:
+            _style_block(sd, f"{name}.{j}", p[f"{kind}_{j}"])
+            j += 1
+    _conv_bias(sd, "latlayer1", p["latlayer1"]["conv"])
+    _conv_bias(sd, "latlayer2", p["latlayer2"]["conv"])
+    _lin(sd, "adjust_style", p["adjust_style"])
+    return _torch_sd(sd)
+
+
+def backbone_encoder_into_w_state_dict_from_jax(variables: Dict[str, Any]
+                                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``BackboneEncoderIntoW`` variables -> the port's state dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    _irse_trunk(sd, p["trunk"], s["trunk"])
+    _lin(sd, "linear", p["linear"])
+    return _torch_sd(sd)
+
+
+def backbone_encoder_into_wplus_state_dict_from_jax(
+        variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``BackboneEncoderIntoWPlus`` variables -> the port's state
+    dict (``output_layer_2.{0,3}``, ``linear``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    _irse_trunk(sd, p["trunk"], s["trunk"])
+    _batch_norm(sd, "output_layer_2.0", p["out_bn"]["bn"], s["out_bn"]["bn"])
+    _lin(sd, "output_layer_2.3", p["out_linear"])
+    _lin(sd, "linear", p["linear"])
+    return _torch_sd(sd)
