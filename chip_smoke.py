@@ -149,8 +149,40 @@ clock comes before the first use of torch.profiler.
      ``cli.encode.main --save_inversions`` from that ``best_model.pt`` at
      batch 8 (a tail of 1): encoded (9, 16, 512), every PNG, counted.
 
-The phases run in the order 1, 2a, 3, 7a, 8a, 2b, 3b, 4, 5a, 5b, 6, then
-7a's profile, 7b, 7c, 8a's profile, 8b, 8c.  The last
+  9. editing (``edit/``, ``cli/edit.py``, ``cli/edit_eval.py``), in
+     build/smoke_edit, removed at the end; random reference-layout
+     checkpoints (DEX age VGG16, pose resnet18, CelebA-HQ Smiling, IR-SE-50
+     ArcFace) drawn from seeded generators:
+  9a. the scoring sweep (a main path, counted): ``collect_scored_latents``
+     of 3,200 samples at batch 64, the 256px ``ModelConfig()`` generator
+     in bf16 with seeded random weights, the DEX age net loaded through
+     ``load_scorer_from_checkpoint``: img/s scored (host clock), each
+     batch's decode and score (events), the DEX flops a batch and its
+     float32 bound, peak memory, the 150k protocol's card time
+     extrapolated; one batch of the pose and the CelebA-HQ scorers (events).
+     It runs right after 8a, before the first torch.profiler window;
+     after phase 8 a scored batch is profiled (top kernels, busy share);
+  9b. ``train_boundary`` at the protocol's size ([6000, 8192] latents,
+     ``chosen_ratio=3000``: 2,100 + 2,100 training rows) on the card
+     (seconds, iterations, KKT gap), the same rows solved on the CPU, the
+     normals' cosine (1 - cosine within 1e-6); right after 9a;
+  9c. ``edit_sample`` at 61 steps over the three spaces (a main path,
+     counted) with 9b's normal: ms per edited sample; one strip decode's
+     6 launches replayed through ``fused_blur4_plain``: bf16 within 2
+     ulps beyond 1e-5, and a float32 generator of the same weights within
+     1e-5 of the plain output's largest;
+  9d. the three classifiers' scores card vs CPU on the same f32 images
+     (1e-4 of the largest);
+  9e. ``cli.edit.main`` at its defaults but ``--num_sample 640
+     --n_edit_samples 2`` (a random DEX, as without ``--classifier_ckpt``),
+     then ``--encoded_z/p`` (saved random codes) from the cached boundaries,
+     each counted; ``cli.edit_eval.main`` on the sampled strips with the age
+     and pose classifiers, ``--arcface`` and ``--boundaries``: file trees
+     and a finite report.
+
+The phases run in the order 1, 2a, 3, 7a, 8a, 9a, 9b, 2b, 3b, 4, 5a, 5b,
+6, then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's profile, 9c, 9d,
+9e.  The last
 three lines are the card line, the kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX or of the JAX package.
@@ -158,7 +190,9 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -2279,6 +2313,495 @@ def encoder_cli_phase(fb, dev, root: pathlib.Path, g,
                          "encode": encode_counts}}
 
 
+# ---------------------------------------------------------------- phase 9
+
+EDIT_BATCH = 64                    # cli.edit's default --batch
+EDIT_SAMPLES = 3200                # 9a: 50 scored batches
+PROTOCOL_SAMPLES = 150_000         # the reference's --num_sample
+EDIT_STEPS = 61                    # cli.edit's default --steps
+STRIP_SAMPLES = 2                  # 9c: timed edited samples
+SVM_ROWS, SVM_CHOSEN = 6000, 3000  # 9b: 2,100 + 2,100 train, 900 + 900 val
+SVM_DIM = 16 * 512                 # the flattened plus space
+SVM_COS_GAP = 1e-6                 # 9b: card vs CPU normals, 1 - cosine
+N_CLI_SAMPLES = 640                # 9e: cli.edit --num_sample (10 batches)
+CLI_EDIT_BATCH = 64                # ... at cli.edit's default --batch
+N_CLI_EDITS = 2                    # 9e: --n_edit_samples
+SCORE_REL = 1e-4                   # 9d: card vs CPU scores
+
+
+def edit_setup(dev, root: pathlib.Path, **cfg_kw) -> dict:
+    """Phase 9's model and classifier checkpoints: the bf16 generator of
+    ``ModelConfig()`` (seeded random weights; ``cfg_kw`` narrows it for a
+    CPU rehearsal) and, in ``root``, random reference-layout state dicts
+    drawn from seeded ``torch.Generator``s: the DEX age VGG16, the pose
+    resnet18, the CelebA-HQ Smiling net and an IR-SE-50 ArcFace."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.edit.classifiers import random_classifier
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.models.irse import (ArcFaceBackbone,
+                                                   init_weights)
+
+    root.mkdir(parents=True, exist_ok=True)
+    ckpt = {}
+    for seed, attr in enumerate(("age", "pose", "Smiling")):
+        net = random_classifier(attr, torch.Generator().manual_seed(seed))
+        ckpt[attr] = str(root / f"{attr}.pth")
+        torch.save(net.state_dict(), ckpt[attr])
+    arc = init_weights(ArcFaceBackbone(), torch.Generator().manual_seed(3))
+    ckpt["arcface"] = str(root / "ir_se50.pth")
+    torch.save(arc.state_dict(), ckpt["arcface"])
+    g = Generator(ModelConfig(dtype="bfloat16", **cfg_kw), device=dev,
+                  seed=0).eval()
+    return {"g": g, "cfg_kw": cfg_kw, "ckpt": ckpt, "root": root}
+
+
+def edit_sweep_phase(fb, dev, card: str, setup) -> dict:
+    """9a (a main path, counted): ``collect_scored_latents`` of
+    EDIT_SAMPLES samples at batch 64 with the bf16 generator and the DEX
+    age scorer (its checkpoint through ``load_scorer_from_checkpoint``),
+    after one warm batch.  Host clock over the run (img/s scored, the
+    150k protocol's card time extrapolated); CUDA events split each
+    batch's decode (sample, map, decode) from its score; peak memory; the
+    DEX forward's flops on one batch (float32 bound at 67 TFLOP/s)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from transeditor_tpu_torch.edit import sweep
+    from transeditor_tpu_torch.edit.classifiers import (
+        load_scorer_from_checkpoint)
+
+    g = setup["g"]
+    ups = g.cfg.log_size - 2
+    t0 = time.perf_counter()
+    scorer = load_scorer_from_checkpoint("age", setup["ckpt"]["age"], dev)
+    load_s = time.perf_counter() - t0
+    sweep.collect_scored_latents(g, scorer, n_samples=EDIT_BATCH,
+                                 batch=EDIT_BATCH, seed=1)     # warm
+    spans, marks = [], []
+
+    def timed(img):
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s0.record()
+        out = scorer(img)
+        s1.record()
+        spans.append((s0, s1))
+        return out
+
+    def progress(_):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append(e)
+
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    start.record()
+    z, p, s = sweep.collect_scored_latents(g, timed, n_samples=EDIT_SAMPLES,
+                                           batch=EDIT_BATCH, seed=0,
+                                           progress=progress)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fb.launches.by_role_path         # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-EDIT_SAMPLES // EDIT_BATCH)
+    check(counts == {"forward": {"tma": ups * batches}},
+          f"9a launches {counts}")
+    dim = g.cfg.n_tokens * g.cfg.style_dim
+    check(z.shape == p.shape == (EDIT_SAMPLES, dim), f"9a codes {z.shape}")
+    check(bool(np.isfinite(z).all() and np.isfinite(p).all()
+               and np.isfinite(s).all()), "9a non-finite codes or scores")
+    decode_ms = [a.elapsed_time(b[0]) for a, b in
+                 zip([start] + marks[:-1], spans)]
+    score_ms = [a.elapsed_time(b) for a, b in spans]
+    img_s = EDIT_SAMPLES / wall
+
+    img = torch.rand((EDIT_BATCH, g.cfg.size, g.cfg.size, 3), device=dev,
+                     generator=torch.Generator(dev).manual_seed(2)) * 2 - 1
+    with FlopCounterMode(display=False) as counter:
+        scorer(img)
+    flops = counter.get_total_flops()
+    others = {}
+    for attr in ("pose", "Smiling"):
+        sc = load_scorer_from_checkpoint(attr, setup["ckpt"][attr], dev)
+        others[attr] = time_ms(lambda: sc(img), reps=5, warm=2)
+    out = {"samples": EDIT_SAMPLES, "batch": EDIT_BATCH, "wall_s": wall,
+           "img_per_s": img_s, "load_scorer_s": load_s,
+           "decode_ms_median": float(np.median(decode_ms)),
+           "score_ms_median": float(np.median(score_ms)),
+           "dex_batch_gflop": flops / 1e9,
+           "dex_batch_bound_ms": flops / F32_FLOPS_PER_S * 1e3,
+           "peak_gib": peak / 2 ** 30,
+           "over_resident_gib": (peak - resident) / 2 ** 30,
+           "protocol_card_s": PROTOCOL_SAMPLES / img_s,
+           "scorer_batch_ms": others, "launches": counts,
+           "score_mean": float(s.mean()), "score_std": float(s.std())}
+    print(f"9a scoring sweep: {EDIT_SAMPLES} samples, bf16 {g.cfg.size}px "
+          f"generator + f32 DEX age at batch {EDIT_BATCH}: {wall:.2f} s, "
+          f"{img_s:.1f} img/s scored on {card}; a batch's decode "
+          f"{out['decode_ms_median']:.3f} ms, score "
+          f"{out['score_ms_median']:.3f} ms (medians, events; DEX "
+          f"{flops / 1e9:.1f} GFLOP a batch, bound "
+          f"{out['dex_batch_bound_ms']:.3f} ms); peak "
+          f"{out['peak_gib']:.2f} GiB ({out['over_resident_gib']:.2f} over "
+          f"resident); the {PROTOCOL_SAMPLES}-sample protocol: "
+          f"{out['protocol_card_s']:.0f} s of card time; pose / CelebA-HQ "
+          f"scorer a batch of {EDIT_BATCH}: {others['pose']:.3f} / "
+          f"{others['Smiling']:.3f} ms; scores mean {out['score_mean']:.3f} "
+          f"std {out['score_std']:.3f}; launches {counts}; scorer loaded "
+          f"in {load_s:.2f} s", flush=True)
+    setup["scorer"] = scorer
+    return out
+
+
+def svm_phase(dev, root: pathlib.Path) -> dict:
+    """9b: ``train_boundary`` at the protocol's size on the card: [6000,
+    8192] seeded latents whose scores follow a direction plus noise,
+    ``chosen_ratio=3000`` (2,100 + 2,100 training rows, 900 + 900
+    validation rows); seconds on the card (host clock, synchronised),
+    the solver's iterations and KKT gap; the same training rows solved
+    on the CPU, and the cosine between the two normals (1 - cosine within
+    SVM_COS_GAP).  The card's normal is saved to ``root`` for 9c."""
+    import contextlib
+    import io
+
+    from transeditor_tpu_torch.edit import boundary
+
+    rng = np.random.RandomState(0)
+    latents = rng.randn(SVM_ROWS, SVM_DIM).astype(np.float32)
+    scores = (latents @ rng.randn(SVM_DIM).astype(np.float32)
+              / np.sqrt(SVM_DIM) + 0.5 * rng.randn(SVM_ROWS)).astype(
+                  np.float32)
+    fit = boundary.fit_linear_svc
+    fits = []
+
+    def recording(x, y, **kw):
+        fits.append((x, y, fit(x, y, **kw)))
+        return fits[-1][2]
+
+    said = io.StringIO()
+    boundary.fit_linear_svc = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            normal = boundary.train_boundary(latents, scores,
+                                             chosen_ratio=SVM_CHOSEN,
+                                             device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    finally:
+        boundary.fit_linear_svc = fit
+    x, y, card = fits[0]
+    check(x.shape == (2 * int(SVM_CHOSEN * 0.7), SVM_DIM),
+          f"9b training rows {x.shape}")
+    t0 = time.perf_counter()
+    cpu = fit(x, y, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    a, b = card.coef.cpu(), cpu.coef
+    cos = float(a @ b / (a.norm() * b.norm()))
+    line = said.getvalue().strip()
+    out = {"rows": list(x.shape), "card_s": card_s, "cpu_s": cpu_s,
+           "iterations": card.iterations, "kkt_gap": card.kkt_gap,
+           "cpu_iterations": cpu.iterations, "cpu_kkt_gap": cpu.kkt_gap,
+           "cosine_card_cpu": cos, "intercepts": [card.intercept,
+                                                  cpu.intercept],
+           "accuracy_line": line}
+    print(f"9b SVM at the protocol's size: train_boundary on [{SVM_ROWS}, "
+          f"{SVM_DIM}], chosen {SVM_CHOSEN}: {card_s:.2f} s on the card "
+          f"({card.iterations} iterations, KKT gap {card.kkt_gap:.3e}); "
+          f"the same {x.shape[0]} training rows on the CPU {cpu_s:.2f} s "
+          f"({cpu.iterations} iterations, gap {cpu.kkt_gap:.3e}); normals' "
+          f"cosine card vs CPU 1 - {1 - cos:.3e} (limit {SVM_COS_GAP}); "
+          f"'{line}'", flush=True)
+    check(card.kkt_gap < 1e-6 and cpu.kkt_gap < 1e-6, "9b KKT gap")
+    check(1 - cos <= SVM_COS_GAP, f"9b card vs CPU normals: 1 - {1 - cos}")
+    check(normal.shape == (1, SVM_DIM) and bool(np.isfinite(normal).all()),
+          "9b normal")
+    np.save(root / "svm_normal.npy", normal)
+    return out
+
+
+def profile_scoring(dev, setup) -> dict:
+    """9a's profile: one scored batch (sample, map, decode, score) under
+    torch.profiler after a warm one; top kernels and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from transeditor_tpu_torch.edit import sweep
+
+    g, scorer = setup["g"], setup["scorer"]
+
+    def batch():
+        sweep.collect_scored_latents(g, scorer, n_samples=EDIT_BATCH,
+                                     batch=EDIT_BATCH, seed=3)
+
+    batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, blur_us, rows = kernel_table(prof, top=8)
+    check(busy_us > 0, "the scoring profile shows no device time")
+    print(f"profile of one scored batch (bf16 decode + f32 DEX age, batch "
+          f"{EDIT_BATCH}): device busy {busy_us / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.1%}); "
+          f"fused_blur4 {blur_us / 1e3:.3f} ms", flush=True)
+    for r in rows:
+        print(f"  {r['ms']:9.3f} ms  x{r['calls']:<4d} {r['name']}",
+              flush=True)
+    return {"busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+            "busy_share": busy_us / wall_us, "fused_blur4_ms": blur_us / 1e3,
+            "top": rows}
+
+
+def _plus_codes(g, n: int, seed: int):
+    z, p = codes(n, g.cfg.style_dim, seed=seed)
+    dev = next(g.parameters()).device
+    with torch.no_grad():
+        zp, pp = g.map_codes(z.to(dev), p.to(dev))
+    return zp.float().cpu().numpy(), pp.float().cpu().numpy()
+
+
+def _replayed(fb, decode, z_strip, p_strip):
+    """The launches of one strip decode, each with its output and the
+    plain version's on the same inputs."""
+    blur, calls = fb._blur, []
+
+    def recording(x, taps, pad, scale, bias, act, role):
+        y = blur(x, taps, pad, scale, bias, act, role)
+        calls.append((x, taps, pad, scale, bias, act, y))
+        return y
+
+    fb._blur = recording
+    try:
+        decode(z_strip, p_strip)
+        torch.cuda.synchronize()
+    finally:
+        fb._blur = blur
+    return [(x.shape, y, fb.fused_blur4_plain(x, taps, pad, scale, bias,
+                                              act))
+            for x, taps, pad, scale, bias, act, y in calls]
+
+
+def strips_phase(fb, dev, card: str, setup, boundaries) -> dict:
+    """9c (a main path, counted): ``edit_sample`` at 61 steps over the
+    three spaces (pz+, p+, z+: 183 bf16 decodes, each strip one batch,
+    scored by the DEX age net) for STRIP_SAMPLES samples after a warm
+    one, ms per edited sample by the host clock; then each launch of one
+    strip decode replayed through ``fused_blur4_plain`` on its own inputs:
+    the bf16 strip within 2 bf16 ulps beyond 1e-5 (phase 2a's limit), the
+    same strip decoded by a float32 generator of the same weights within
+    1e-5 of the plain output's largest magnitude (as 7b and 8b)."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.edit import sweep
+    from transeditor_tpu_torch.edit.boundary import linear_interpolate
+    from transeditor_tpu_torch.models.generator import Generator
+
+    g, scorer = setup["g"], setup["scorer"]
+    ups = g.cfg.log_size - 2
+    decode = sweep.make_strip_decoder(g, scorer)
+    zp, pp = _plus_codes(g, STRIP_SAMPLES + 1, seed=5)
+    sweep.edit_sample(decode, zp[0], pp[0], boundaries, 3.0, 7.0,
+                      EDIT_STEPS)                              # warm
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    for i in range(1, STRIP_SAMPLES + 1):
+        strips = sweep.edit_sample(decode, zp[i], pp[i], boundaries, 3.0,
+                                   7.0, EDIT_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / STRIP_SAMPLES * 1e3
+    counts = fb.launches.by_role_path         # ... and ends here
+    check(counts == {"forward": {"tma": 3 * ups * STRIP_SAMPLES}},
+          f"9c launches {counts}")
+    size = g.cfg.size
+    for space, strip in strips.items():
+        check(strip.images.shape == (EDIT_STEPS, size, size, 3),
+              f"9c {space} {strip.images.shape}")
+        check(bool(np.isfinite(strip.images).all()
+                   and np.isfinite(strip.scores).all()), f"9c {space}")
+
+    t, d = zp[0].shape
+    z_strip = linear_interpolate(zp[0].reshape(1, -1), boundaries["z"],
+                                 -3.0, 3.0, EDIT_STEPS).reshape(-1, t, d)
+    p_strip = linear_interpolate(pp[0].reshape(1, -1), boundaries["p"],
+                                 -7.0, 7.0, EDIT_STEPS).reshape(-1, t, d)
+    errs = {}
+    bf16 = _replayed(fb, sweep.make_strip_decoder(g), z_strip, p_strip)
+    check(len(bf16) == ups, f"9c recorded {len(bf16)} bf16 launches")
+    worst = 0.0
+    for shape, y, want in bf16:
+        w = want.float()
+        err = (y.float() - w).abs()
+        check(bool((err <= 2 * bf16_ulp(w) + 1e-5).all()),
+              f"9c bf16 launch {tuple(shape)} beyond 2 ulps")
+        worst = max(worst, err.max().item())
+    errs["bf16_max_abs"] = worst
+    del bf16
+    g32 = Generator(ModelConfig(**setup["cfg_kw"]), device=dev).eval()
+    g32.load_state_dict(g.state_dict())
+    f32 = _replayed(fb, sweep.make_strip_decoder(g32), z_strip, p_strip)
+    check(len(f32) == ups, f"9c recorded {len(f32)} f32 launches")
+    rel = max(((y - w).abs().max() / w.abs().max()).item()
+              for _, y, w in f32)
+    errs["f32_rel"] = rel
+    errs["f32_max_abs"] = max((y - w).abs().max().item() for _, y, w in f32)
+    check(rel <= 1e-5, f"9c f32 launch: {rel} of the plain output's largest")
+    del f32, g32
+    torch.cuda.empty_cache()
+    print(f"9c edit strips: {EDIT_STEPS} steps x 3 spaces, bf16 "
+          f"{size}px + DEX age: {ms:.1f} ms per edited sample on {card}; "
+          f"launches {counts}; one strip's {ups} launches replayed through "
+          f"the plain version: bf16 largest error {errs['bf16_max_abs']:.3e} "
+          f"(within 2 bf16 ulps), f32 {rel:.3e} of the plain output's "
+          f"largest (limit 1e-5)", flush=True)
+    return {"ms_per_sample": ms, "launches": counts, "replay": errs}
+
+
+def scorers_card_vs_cpu(dev, setup) -> dict:
+    """9d: the three classifiers (DEX age, pose, CelebA-HQ Smiling) from
+    their checkpoints on the card and on the CPU, on the same four f32
+    images decoded by the generator: scores within SCORE_REL of the
+    largest magnitude."""
+    from transeditor_tpu_torch.edit.classifiers import (
+        load_scorer_from_checkpoint)
+
+    g = setup["g"]
+    z, p = codes(4, g.cfg.style_dim, seed=6)
+    with torch.no_grad():
+        img = g(z.to(dev), p.to(dev)).image.float().cpu()
+    errs = {}
+    for attr in ("age", "pose", "Smiling"):
+        path = setup["ckpt"][attr]
+        want = load_scorer_from_checkpoint(attr, path, "cpu")(img)
+        got = load_scorer_from_checkpoint(attr, path, dev)(img).cpu()
+        errs[attr] = ((got - want).abs().max()
+                      / want.abs().max()).item()
+        check(errs[attr] <= SCORE_REL, f"9d {attr}: {errs[attr]}")
+    print(f"9d classifier scores card vs CPU on 4 f32 {g.cfg.size}px "
+          f"images: largest error over the largest score {errs} (limit "
+          f"{SCORE_REL})", flush=True)
+    return errs
+
+
+def edit_cli_phase(fb, dev, root: pathlib.Path, setup,
+                   model_argv: list) -> dict:
+    """9e (main paths, counted): ``cli.edit.main`` in this process at its
+    defaults (age, random DEX drawn from a generator seeded 0, bf16, 61
+    steps) but ``--num_sample 640 --n_edit_samples 2``: boundaries cached
+    as .npy, the strips and origin grid; then the inversion variant
+    (``--encoded_z/p``, saved random plus-space codes) from the cached
+    boundaries; then ``cli.edit_eval.main`` on the sampled strips with
+    the age and pose classifiers, ``--arcface`` and ``--boundaries``: the
+    file trees and a finite JSON report.  Launches counted around each
+    edit CLI."""
+    from transeditor_tpu_torch.cli import edit as cli_edit
+    from transeditor_tpu_torch.cli import edit_eval as cli_eval
+
+    g = setup["g"]
+    ups = g.cfg.log_size - 2
+    ckpt = root / "g_edit.pt"
+    torch.save({"g_ema": {k: v.cpu() for k, v in g.state_dict().items()}},
+               ckpt)
+    sampled, encoded = root / "edits", root / "edits_encoded"
+    strip_dir = pathlib.Path("age") / "3.0_7.0_0"
+    frames = EDIT_STEPS * N_CLI_EDITS
+
+    def tree(out):
+        return {str(pth.relative_to(out)) for pth in out.rglob("*")
+                if pth.is_file()}
+
+    def space_files(out):
+        return {sp: len(list((out / strip_dir / sp).glob("*.png")))
+                for sp in ("pz_plus", "p_plus", "z_plus")}
+
+    runs = {}
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    cli_edit.main(["--ckpt", str(ckpt), "--num_sample", str(N_CLI_SAMPLES),
+                   "--n_edit_samples", str(N_CLI_EDITS), "--out_dir",
+                   str(sampled), *model_argv])
+    torch.cuda.synchronize()
+    runs["sampled"] = {"s": time.perf_counter() - t0,
+                       "launches": fb.launches.by_role_path}
+    batches = -(-N_CLI_SAMPLES // CLI_EDIT_BATCH)
+    want = ups * (batches + 1 + 3 * N_CLI_EDITS)
+    check(runs["sampled"]["launches"] == {"forward": {"tma": want}},
+          f"9e cli.edit launches {runs['sampled']['launches']}")
+    names = tree(sampled)
+    check({"boundary_age_z.npy", "boundary_age_p.npy",
+           str(strip_dir / "origin_image" / "sample_gen.png")} <= names,
+          f"9e cli.edit wrote {sorted(names)[:8]}")
+    check(space_files(sampled) == {sp: frames + N_CLI_EDITS for sp in
+                                   ("pz_plus", "p_plus", "z_plus")},
+          f"9e strips {space_files(sampled)}")
+
+    encoded.mkdir()
+    for k in "zp":
+        shutil.copy(sampled / f"boundary_age_{k}.npy", encoded)
+    rng = np.random.RandomState(7)
+    for k in "zp":
+        np.save(root / f"encoded_{k}.npy", rng.randn(
+            N_CLI_EDITS, 16, g.cfg.style_dim).astype(np.float32))
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    cli_edit.main(["--ckpt", str(ckpt), "--encoded_z",
+                   str(root / "encoded_z.npy"), "--encoded_p",
+                   str(root / "encoded_p.npy"), "--n_edit_samples",
+                   str(N_CLI_EDITS), "--out_dir", str(encoded), *model_argv])
+    torch.cuda.synchronize()
+    runs["encoded"] = {"s": time.perf_counter() - t0,
+                       "launches": fb.launches.by_role_path}
+    want = ups * 3 * N_CLI_EDITS
+    check(runs["encoded"]["launches"] == {"forward": {"tma": want}},
+          f"9e cli.edit --encoded launches {runs['encoded']['launches']}")
+    check(space_files(encoded) == {sp: frames + N_CLI_EDITS for sp in
+                                   ("pz_plus", "p_plus", "z_plus")},
+          f"9e encoded strips {space_files(encoded)}")
+
+    report_path = root / "report.json"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # the JSON, read below
+        cli_eval.main(["--strips_dir", str(sampled / strip_dir),
+                       "--edited_attr",
+                       "age", "--classifier",
+                       f"age={setup['ckpt']['age']}",
+                       f"pose={setup['ckpt']['pose']}", "--arcface",
+                       setup["ckpt"]["arcface"], "--boundaries",
+                       str(sampled / "boundary_age_z.npy"),
+                       str(sampled / "boundary_age_p.npy"), "--out",
+                       str(report_path), "--device", dev.type])
+    eval_s = time.perf_counter() - t0
+    report = json.loads(report_path.read_text())
+    check(set(report) == {"trajectories", "disentanglement",
+                          "id_preservation", "boundary_cosine"},
+          f"9e report keys {sorted(report)}")
+    trajs = np.asarray([report["trajectories"][a][sp] for a in ("age", "pose")
+                        for sp in ("pz_plus", "p_plus", "z_plus")])
+    check(trajs.shape == (6, N_CLI_EDITS, EDIT_STEPS)
+          and bool(np.isfinite(trajs).all()), f"9e trajectories {trajs.shape}")
+    ids = list(report["id_preservation"].values())
+    cos = list(report["boundary_cosine"].values())
+    check(len(ids) == 3 and len(cos) == 1
+          and bool(np.isfinite(ids + cos).all()), "9e id / cosine")
+    print(f"9e cli.edit sampled ({N_CLI_SAMPLES} scored, {N_CLI_EDITS} "
+          f"edited, {EDIT_STEPS} steps): {runs['sampled']['s']:.2f} s, "
+          f"launches {runs['sampled']['launches']}; --encoded_z/p from the "
+          f"cached boundaries: {runs['encoded']['s']:.2f} s, launches "
+          f"{runs['encoded']['launches']}; cli.edit_eval (age, pose, "
+          f"--arcface, --boundaries): {eval_s:.2f} s, ID similarity "
+          f"{report['id_preservation']}, boundary cosine {cos[0]:.4f}, "
+          f"disentanglement {report['disentanglement']}", flush=True)
+    return {"runs": runs, "edit_eval_s": eval_s,
+            "launches": {k: v["launches"] for k, v in runs.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2317,6 +2840,14 @@ def main() -> int:
     del setup
     torch.cuda.empty_cache()
     coached["phase_s"] = time.time() - t8
+    t9 = time.time()
+    edit_root = pathlib.Path(__file__).resolve().parent / "build" / \
+        "smoke_edit"
+    shutil.rmtree(edit_root, ignore_errors=True)
+    esetup = edit_setup(dev, edit_root)
+    edited = {"sweep": edit_sweep_phase(fb, dev, card, esetup),
+              "svm": svm_phase(dev, edit_root)}
+    edited["phase_s"] = time.time() - t9
     rows = kernel_times(fb, dev)
     gen["profile"] = [profile_forward(g, dev, b) for b in (1, 64)]
     paths = serve_phase(fb, dev, g)
@@ -2376,6 +2907,23 @@ def main() -> int:
     del g_coach
     coached["phase_s"] += time.time() - t8
     print(f"phase 8: {coached['phase_s']:.1f} s", flush=True)
+    t9 = time.time()
+    try:
+        edited["profile"] = profile_scoring(dev, esetup)
+        bounds = {k: np.load(edit_root / "svm_normal.npy") for k in "zp"}
+        edited["strips"] = strips_phase(fb, dev, card, esetup, bounds)
+        edited["card_vs_cpu"] = scorers_card_vs_cpu(dev, esetup)
+        edited["cli"] = edit_cli_phase(fb, dev, edit_root, esetup, [])
+    finally:
+        shutil.rmtree(edit_root, ignore_errors=True)
+    del esetup
+    torch.cuda.empty_cache()
+    edited["phase_s"] += time.time() - t9
+    print(f"phase 9: {edited['phase_s']:.1f} s", flush=True)
+    edit_launches = {"sweep": edited["sweep"]["launches"],
+                     "strips": edited["strips"]["launches"],
+                     **{f"cli_{k}": v
+                        for k, v in edited["cli"]["launches"].items()}}
     serve_paths = dict(paths)
     for k, n in cli["serve_state"]["launches"].items():
         serve_paths[k] = serve_paths.get(k, 0) + n
@@ -2396,7 +2944,8 @@ def main() -> int:
         + total(cli["train"]["launches"]) + total(projected["launches"])
         + total(projected["cli"]["launches"])
         + sum(total(c) for c in coached["launches"].values())
-        + sum(total(c) for c in coached["cli"]["launches"].values()),
+        + sum(total(c) for c in coached["cli"]["launches"].values())
+        + sum(total(c) for c in edit_launches.values()),
         "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
         "cli_train_launches": cli["train"]["launches"],
@@ -2416,11 +2965,18 @@ def main() -> int:
         # 8b: a coach step's launches replayed through the plain version
         "coach_launch_errors": coached["kernel_vs_plain"]["launch_errors"],
         "coach_step_grad_l2_card_vs_cpu": coached["card_vs_cpu"]["grad_l2"],
+        # phase 9, each from 0: the scoring sweep (9a), the timed edit
+        # strips (9c), cli.edit sampled and --encoded_z/p (9e)
+        "edit_launches": edit_launches,
+        # 9c: one strip decode's launches replayed through the plain
+        # version (bf16 within 2 ulps, f32 within 1e-5 of the largest)
+        "edit_launch_errors": edited["strips"]["replay"],
         "launches_per_train_step": {k: v["launches"]
                                     for k, v in train_counts.items()},
         "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
                            grad_errs["max_abs_err"],
                            coached["kernel_vs_plain"]["max_abs_err"],
+                           edited["strips"]["replay"]["f32_max_abs"],
                            *(r["max_abs_err"] for r in rows)),
         "max_err_f32": errs["max_err_f32"],
         "max_err_bf16": max(errs["max_err_bf16"],
@@ -2462,6 +3018,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"project": projected}), flush=True)
     print(json.dumps({"coach": coached}), flush=True)
+    print(json.dumps({"edit": edited}), flush=True)
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s",
           flush=True)
     print(f"card: {card}", flush=True)

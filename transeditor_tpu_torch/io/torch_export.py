@@ -298,3 +298,83 @@ def backbone_encoder_into_wplus_state_dict_from_jax(
     _lin(sd, "output_layer_2.3", p["out_linear"])
     _lin(sd, "linear", p["linear"])
     return _torch_sd(sd)
+
+
+# ---------------------------------------------------------------------
+# the editing classifiers: flax trees (numpy leaves) -> the reference
+# layouts (``transeditor_tpu/edit/{classifiers,celebahq_classifier}.py``'s
+# ``port_dex_vgg`` / ``port_pose_classifier`` / ``port_celebahq_classifier``
+# read backwards)
+
+def dex_vgg_state_dict_from_jax(variables: Dict[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``DexVGG`` variables -> the DEX layout (``conv.{b}.conv{i}``,
+    ``fc1.0``, ``fc2.0``, ``cls``) of the port's ``DexVGG``."""
+    p = variables["params"]
+    sd: Dict[str, np.ndarray] = {}
+    b = 0
+    while f"b{b}_conv0" in p:
+        c = 0
+        while f"b{b}_conv{c}" in p:
+            _conv_bias(sd, f"conv.{b}.conv{c + 1}", p[f"b{b}_conv{c}"])
+            c += 1
+        b += 1
+    _lin(sd, "fc1.0", p["fc1"])
+    _lin(sd, "fc2.0", p["fc2"])
+    _lin(sd, "cls", p["cls"])
+    return _torch_sd(sd)
+
+
+def pose_classifier_state_dict_from_jax(variables: Dict[str, Any]
+                                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``PoseClassifier`` variables -> the ClassifyModel layout
+    (``backbone.{0,1,4..7}``, ``extra_layer``) of the port's
+    ``PoseClassifier``."""
+    p = variables["params"]["backbone"]
+    s = variables["batch_stats"]["backbone"]
+    sd: Dict[str, np.ndarray] = {}
+    sd["backbone.0.weight"] = _conv_oihw(p["conv1"]["kernel"])
+    _batch_norm(sd, "backbone.1", p["bn1"], s["bn1"])
+    for blk in range(8):             # layer1..4 are Sequential 4..7
+        bp, bs = p[f"block{blk}"], s[f"block{blk}"]
+        pre = f"backbone.{4 + blk // 2}.{blk % 2}"
+        sd[f"{pre}.conv1.weight"] = _conv_oihw(bp["conv1"]["kernel"])
+        _batch_norm(sd, f"{pre}.bn1", bp["bn1"], bs["bn1"])
+        sd[f"{pre}.conv2.weight"] = _conv_oihw(bp["conv2"]["kernel"])
+        _batch_norm(sd, f"{pre}.bn2", bp["bn2"], bs["bn2"])
+        if "down_conv" in bp:
+            sd[f"{pre}.downsample.0.weight"] = _conv_oihw(
+                bp["down_conv"]["kernel"])
+            _batch_norm(sd, f"{pre}.downsample.1", bp["down_bn"],
+                        bs["down_bn"])
+    _lin(sd, "extra_layer", variables["params"]["extra_layer"])
+    return _torch_sd(sd)
+
+
+def celebahq_classifier_state_dict_from_jax(variables: Dict[str, Any]
+                                            ) -> Dict[str, torch.Tensor]:
+    """JAX ``CelebAHQAttributeClassifier`` variables -> the gan-ensembling
+    D layout (``fromrgb_lod0.conv``, ``{R}x{R}.conv{0,1}``, ``4x4.conv``,
+    ``4x4.dense{0,1}``) of the port's classifier."""
+    p = variables["params"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(prefix, tree):
+        sd[f"{prefix}.conv.weight"] = _conv_oihw(tree["weight"])
+        sd[f"{prefix}.wscale.b"] = np.asarray(tree["bias"], np.float32)
+
+    def dense(prefix, tree):
+        sd[f"{prefix}.linear.weight"] = np.asarray(tree["weight"],
+                                                   np.float32).T
+        sd[f"{prefix}.wscale.b"] = np.asarray(tree["bias"], np.float32)
+
+    conv("fromrgb_lod0.conv", p["fromrgb"])
+    for name in p:
+        if name.startswith("block_") and name.endswith("_conv0"):
+            r = name[len("block_"):-len("_conv0")]
+            conv(f"{r}x{r}.conv0", p[name])
+            conv(f"{r}x{r}.conv1", p[f"block_{r}_conv1"])
+    conv("4x4.conv", p["pred_conv"])
+    dense("4x4.dense0", p["pred_dense0"])
+    dense("4x4.dense1", p["pred_dense1"])
+    return _torch_sd(sd)
