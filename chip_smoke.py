@@ -180,9 +180,45 @@ clock comes before the first use of torch.profiler.
      and pose classifiers, ``--arcface`` and ``--boundaries``: file trees
      and a finite report.
 
-The phases run in the order 1, 2a, 3, 7a, 8a, 9a, 9b, 2b, 3b, 4, 5a, 5b,
-6, then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's profile, 9c, 9d,
-9e.  The last
+  10. metrics (``metrics/``, ``cli/{calc_stats,evaluate,img_metrics}.py``),
+     in build/smoke_metrics, removed at the end; the 256px
+     ``ModelConfig()`` generator in bf16 with seeded random weights saved
+     as a reference ``.pt``, and random reference-layout checkpoints drawn
+     from seeded generators (a pytorch-fid InceptionV3 and a torchvision
+     VGG16 with He-scaled layers, richzhang AlexNet and VGG LPIPS, an
+     IR-SE-50 ArcFace), loaded through the port's loaders:
+  10a. ``evaluate_fid`` of 3,200 samples at batch 64 (a main path,
+     counted): img/s without the host's 2,048-wide Fréchet distance (its
+     seconds apart), each batch's decode and Inception ms (events),
+     InceptionV3's flops a batch and its float32 bound, peak memory, the
+     69k protocol's card time.  It runs right after 9b, before the first
+     torch.profiler window; after phase 9 the setup is built again from
+     its files, one FID batch is profiled (top kernels, busy share), and
+     one FID batch decode's 6 launches are replayed through
+     ``fused_blur4_plain`` (bf16 within 2 ulps beyond 1e-5, a float32
+     generator of the same weights within 1e-5 of the largest), and
+     InceptionV3 features of 4 images are held card vs CPU (1e-4 of the
+     largest);
+  10b. ``compute_prdc`` at the protocol's 50,000 x 4,096 a side (seeded
+     Gaussian features made on the card): seconds against the bound of
+     its three distance passes, peak memory; at 4,000 x 512 card vs CPU
+     (equal); ``evaluate_prdc`` of 512 decodes against 512 seeded smooth
+     PNGs (a main path, counted): img/s on each side;
+  10c. ``compute_ppl`` (space all, plus space, crop) over 640 pairs at
+     batch 64 (a main path, counted): ms a batch in bf16; on the same
+     endpoints the distances of the bf16 generator and of a float32 one
+     of the same weights, their percentile means; f32 distances at eps
+     1e-2 card vs CPU (1e-3);
+  10d. ``evaluate_lpips_diversity`` with 2 rounds (6 groups of 40; a main
+     path, counted): ms a group;
+  10e. ``cli.calc_stats`` (256 images), ``cli.evaluate --fid --lpips --ppl
+     --prdc`` at small counts (counted), ``cli.img_metrics`` in its three
+     modes, ``cli.edit_eval --id_inception``: file trees, report text and
+     finite values.
+
+The phases run in the order 1, 2a, 3, 7a, 8a, 9a, 9b, 10a, 2b, 3b, 4, 5a,
+5b, 6, then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's profile, 9c,
+9d, 9e, 10a's profile and replays, 10b, 10c, 10d, 10e.  The last
 three lines are the card line, the kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX or of the JAX package.
@@ -2802,6 +2838,734 @@ def edit_cli_phase(fb, dev, root: pathlib.Path, setup,
             "launches": {k: v["launches"] for k, v in runs.items()}}
 
 
+# ---------------------------------------------------------------- phase 10
+
+METRIC_BATCH = 64                  # cli.evaluate's default --batch
+FID_SAMPLES = 3200                 # 10a: 50 batches
+FID_PROTOCOL = 69_000              # the reference's FFHQ protocol
+PRDC_N, PRDC_D = 50_000, 4096      # 10b: the protocol's k-NN size
+PRDC_IMAGES = 512                  # 10b: evaluate_prdc, each side
+PPL_SAMPLES = 640                  # 10c: 10 batches of 64 pairs
+PPL_PROTOCOL = 10_000              # ... a space; three spaces
+DIV_BATCHES = 2                    # 10d: 6 groups of 40
+DIV_PROTOCOL = 1000                # ... rounds of three groups
+N_METRIC_PNGS = 512                # the real folder of 10b / 10e
+TO_RGB_GAIN = 1 / 32               # the metric generator's ToRGB weights
+CLI_COUNTS = {"stats": 256, "fid": 256, "ppl": 128, "prdc": 128}   # 10e
+FEAT_REL = 1e-4                    # Inception card vs CPU
+
+
+def _he_(w: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
+    fan_in = w[0].numel()
+    return torch.randn(w.shape, generator=rng) * (2.0 / fan_in) ** 0.5
+
+
+def fid_inception_state_dict(seed: int) -> dict:
+    """A random pytorch-fid InceptionV3 state dict (He-scaled convs, BN
+    statistics near 1 / 0: features O(1)), shapes from the port's module
+    on the meta device."""
+    from transeditor_tpu_torch.metrics.inception import (InceptionV3Features,
+                                                         conv_names)
+
+    rng = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        net = InceptionV3Features(device="meta")
+    sd = {}
+    for name in conv_names(net):
+        w = net.get_submodule(name).weight
+        c = w.shape[0]
+        sd[f"{name}.conv.weight"] = _he_(w, rng)
+        sd[f"{name}.bn.weight"] = 1 + 0.1 * torch.randn(c, generator=rng)
+        sd[f"{name}.bn.bias"] = 0.1 * torch.randn(c, generator=rng)
+        sd[f"{name}.bn.running_mean"] = 0.1 * torch.randn(c, generator=rng)
+        sd[f"{name}.bn.running_var"] = 0.5 + torch.rand(c, generator=rng)
+        sd[f"{name}.bn.num_batches_tracked"] = torch.tensor(3)
+    sd["fc.weight"] = torch.zeros(1008, 2048)
+    sd["fc.bias"] = torch.zeros(1008)
+    return sd
+
+
+def he_state_dict(module: torch.nn.Module, seed: int) -> dict:
+    """``module``'s state dict redrawn: He-scaled weights, N(0, 0.1)
+    biases, |N(0, 1)| LPIPS heads."""
+    rng = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in module.state_dict().items():
+        if k.startswith("lin"):
+            sd[k] = torch.randn(v.shape, generator=rng).abs()
+        elif k.endswith("weight"):
+            sd[k] = _he_(v, rng)
+        else:
+            sd[k] = 0.1 * torch.randn(v.shape, generator=rng)
+    return sd
+
+
+def metric_setup(dev, root: pathlib.Path, **cfg_kw) -> dict:
+    """Phase 10's model and weight files: the bf16 generator of
+    ``ModelConfig()`` (seeded random weights, the ToRGB weights scaled by
+    TO_RGB_GAIN; ``cfg_kw`` narrows it for a CPU rehearsal) saved as a
+    reference ``.pt``, and in ``root`` random
+    reference-layout checkpoints drawn from seeded generators: a
+    pytorch-fid InceptionV3, a torchvision VGG16, richzhang AlexNet and
+    VGG LPIPS (heads included) and an IR-SE-50 ArcFace.  The networks are
+    loaded back through the port's loaders."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.metrics.inception import load_fid_inception
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.models.irse import (ArcFaceBackbone,
+                                                   init_weights)
+    from transeditor_tpu_torch.zoo.backbones import VGG16Fc7, load_vgg16_fc7
+    from transeditor_tpu_torch.zoo.lpips import LPIPS, load_lpips
+
+    root.mkdir(parents=True, exist_ok=True)
+    files = {}
+
+    def save(name, sd):
+        files[name] = str(root / name)
+        torch.save(sd, files[name])
+
+    save("pt_inception.pth", fid_inception_state_dict(10))
+    with torch.device("meta"):
+        vgg_meta = VGG16Fc7()
+    vgg_sd = he_state_dict(vgg_meta, 11)
+    vgg_sd.update({"classifier.6.weight": torch.zeros(1000, 4096),
+                   "classifier.6.bias": torch.zeros(1000)})
+    save("vgg16.pth", vgg_sd)
+    for seed, net in ((12, "alex"), (13, "vgg")):
+        he = he_state_dict(LPIPS(net, device="cpu"), seed)
+        sd = {f"features.{k[len('backbone.features.'):]}": v
+              for k, v in he.items() if k.startswith("backbone.")}
+        sd.update({f"lin{i}.model.1.weight": he[f"lin{i}"].reshape(
+            1, -1, 1, 1) for i in range(5)})
+        save(f"lpips_{net}.pth", sd)
+    save("ir_se50.pth", init_weights(
+        ArcFaceBackbone(), torch.Generator().manual_seed(14)).state_dict())
+    g = Generator(ModelConfig(dtype="bfloat16", **cfg_kw), device=dev,
+                  seed=0).eval()
+    # the image is linear in the ToRGB weights (no demodulation): at 1/32
+    # a decode lies within about [-1, 1], as a trained generator's does
+    # (seeded, it spans [-31.75, 20]), so a PNG of a decode holds the
+    # image the metrics see and 10b's real folder overlaps the fakes
+    with torch.no_grad():
+        for to_rgb in (g.to_rgb1, *g.to_rgbs):
+            to_rgb.conv.weight.mul_(TO_RGB_GAIN)
+    files["g"] = str(root / "g_metrics.pt")
+    torch.save({"g_ema": {k: v.cpu() for k, v in g.state_dict().items()}},
+               files["g"])
+    nets = {
+        "inception": load_fid_inception(files["pt_inception.pth"]).to(dev),
+        "vgg16": load_vgg16_fc7(files["vgg16.pth"]).to(dev),
+        "alex": load_lpips(files["lpips_alex.pth"], "alex", dev),
+        "vgg": load_lpips(files["lpips_vgg.pth"], "vgg", dev),
+    }
+    return {"g": g, "cfg_kw": cfg_kw, "files": files, "nets": nets,
+            "root": root}
+
+
+class EventTimer:
+    """Wraps a network: CUDA events around each call, kept in order, and
+    with ``keep`` each call's output."""
+
+    def __init__(self, net, keep: bool = False):
+        self.net, self.spans, self.keep, self.outs = net, [], keep, []
+
+    def __call__(self, x):
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s0.record()
+        out = self.net(x)
+        s1.record()
+        self.spans.append((s0, s1))
+        if self.keep:
+            self.outs.append(out)
+        return out
+
+
+def fid_phase(fb, dev, card: str, setup) -> dict:
+    """10a (a main path, counted): ``evaluate_fid`` of FID_SAMPLES samples
+    at batch 64, the bf16 generator and the InceptionV3 loaded through
+    ``load_fid_inception``, after one warm batch.  Host clock over the run
+    (img/s without the host's Fréchet distance, timed apart: a 2,048-wide
+    ``sqrtm``), CUDA events around each batch's Inception call (a batch's
+    decode is the gap before it), peak memory, InceptionV3's flops on one
+    batch (float32 bound at 67 TFLOP/s), the 69k protocol extrapolated."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from transeditor_tpu_torch.metrics import evaluator
+
+    g, inc = setup["g"], setup["nets"]["inception"]
+    ups = g.cfg.log_size - 2
+    z, p = (t.to(dev) for t in codes(METRIC_BATCH, g.cfg.style_dim, seed=20))
+    with torch.no_grad():
+        inc(g(z, p).image.float())                     # warm
+    timer = EventTimer(inc)
+    frechet, fre_s = evaluator.frechet_distance, []
+
+    def timed_frechet(*a):
+        t0 = time.perf_counter()
+        out = frechet(*a)
+        fre_s.append(time.perf_counter() - t0)
+        return out
+
+    rng = np.random.RandomState(21)
+    real_mean = rng.randn(2048) * 0.1
+    real_cov = np.cov(rng.randn(4096, 2048), rowvar=False)
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    evaluator.frechet_distance = timed_frechet
+    fb.launches.reset()                       # the main path starts here
+    try:
+        t0 = time.perf_counter()
+        start.record()
+        fid = evaluator.evaluate_fid(g, timer, real_mean, real_cov,
+                                     n_samples=FID_SAMPLES,
+                                     batch=METRIC_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        evaluator.frechet_distance = frechet
+    counts = fb.launches.by_role_path         # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-FID_SAMPLES // METRIC_BATCH)
+    check(counts == {"forward": {"tma": ups * batches}},
+          f"10a launches {counts}")
+    check(bool(np.isfinite(fid)) and fid > 0, f"10a FID {fid}")
+    sample_s = wall - fre_s[0]
+    ends = [start] + [e for _, e in timer.spans[:-1]]
+    decode_ms = [a.elapsed_time(s) for a, (s, _) in zip(ends, timer.spans)]
+    inc_ms = [s.elapsed_time(e) for s, e in timer.spans]
+    img_s = FID_SAMPLES / sample_s
+    img = torch.rand((METRIC_BATCH, g.cfg.size, g.cfg.size, 3), device=dev,
+                     generator=torch.Generator(dev).manual_seed(22)) * 2 - 1
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        inc(img)
+    flops = counter.get_total_flops()
+    out = {"samples": FID_SAMPLES, "batch": METRIC_BATCH, "fid": fid,
+           "wall_s": wall, "frechet_s": fre_s[0], "img_per_s": img_s,
+           "decode_ms_median": float(np.median(decode_ms)),
+           "inception_ms_median": float(np.median(inc_ms)),
+           "inception_batch_gflop": flops / 1e9,
+           "inception_batch_bound_ms": flops / F32_FLOPS_PER_S * 1e3,
+           "peak_gib": peak / 2 ** 30,
+           "over_resident_gib": (peak - resident) / 2 ** 30,
+           "protocol_card_s": FID_PROTOCOL / img_s, "launches": counts}
+    out["inception_share_of_bound"] = (out["inception_batch_bound_ms"]
+                                       / out["inception_ms_median"])
+    print(f"10a FID: {FID_SAMPLES} samples, bf16 {g.cfg.size}px generator + "
+          f"f32 InceptionV3 at batch {METRIC_BATCH}: {sample_s:.2f} s, "
+          f"{img_s:.1f} img/s on {card}; a batch's decode "
+          f"{out['decode_ms_median']:.3f} ms, Inception "
+          f"{out['inception_ms_median']:.3f} ms (medians, events; "
+          f"{flops / 1e9:.1f} GFLOP a batch, bound "
+          f"{out['inception_batch_bound_ms']:.3f} ms, "
+          f"{out['inception_share_of_bound']:.1%} of it); Fréchet distance "
+          f"(2,048 wide, host) {fre_s[0]:.2f} s; peak "
+          f"{out['peak_gib']:.2f} GiB ({out['over_resident_gib']:.2f} over "
+          f"resident); the {FID_PROTOCOL}-sample protocol "
+          f"{out['protocol_card_s']:.1f} s of card; FID {fid:.2f}; launches "
+          f"{counts}", flush=True)
+    return out
+
+
+def prdc_knn_phase(dev) -> dict:
+    """10b: ``compute_prdc`` at the protocol's size (50,000 x 4,096 seeded
+    Gaussian features a side, made on the card) after a small warm call;
+    seconds (host clock, the result is fetched) against the bound of its
+    three distance passes (2 N^2 D flops each at 67 TFLOP/s), peak
+    memory; and at 4,000 x 512 card vs CPU (the four values equal)."""
+    from transeditor_tpu_torch.metrics.prdc import compute_prdc
+
+    gen = torch.Generator(dev).manual_seed(30)
+    small = [torch.randn((4000, 512), generator=gen, device=dev)
+             for _ in range(2)]
+    small[1] = small[1] * 1.1 + 0.05
+    card = compute_prdc(*small, 3, device=dev)
+    cpu = compute_prdc(*(t.cpu() for t in small), 3, device="cpu")
+    check(card == cpu, f"10b PRDC card {card} vs CPU {cpu}")
+    real = torch.randn((PRDC_N, PRDC_D), generator=gen, device=dev)
+    fake = torch.randn((PRDC_N, PRDC_D), generator=gen, device=dev) * 1.05
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    vals = compute_prdc(real, fake, 3, device=dev)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del real, fake
+    torch.cuda.empty_cache()
+    flops = 3 * 2 * PRDC_N * PRDC_N * PRDC_D
+    bound_s = flops / F32_FLOPS_PER_S
+    check(all(0 <= v and np.isfinite(v) for v in vals.values()),
+          f"10b PRDC {vals}")
+    out = {"n": PRDC_N, "d": PRDC_D, "s": secs, "bound_s": bound_s,
+           "share_of_bound": bound_s / secs, "peak_gib": peak / 2 ** 30,
+           "over_resident_gib": (peak - resident) / 2 ** 30, "prdc": vals,
+           "card_vs_cpu_4000x512": card}
+    print(f"10b PRDC k-NN at {PRDC_N} x {PRDC_D} a side: {secs:.3f} s "
+          f"(bound {bound_s:.3f} s, {bound_s / secs:.1%}); peak "
+          f"{out['peak_gib']:.2f} GiB ({out['over_resident_gib']:.2f} over "
+          f"resident); {vals}; card == CPU at 4,000 x 512: {card}",
+          flush=True)
+    return out
+
+
+def write_pngs(folder: pathlib.Path, imgs: np.ndarray) -> None:
+    from transeditor_tpu_torch.utils.image import save_png
+
+    folder.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        list(ex.map(lambda i: save_png(str(folder / f"{i:05d}.png"),
+                                       imgs[i]), range(len(imgs))))
+
+
+def decoded_images(g, n: int, seed: int) -> np.ndarray:
+    """uint8 decodes of ``g`` for ``n`` seeded codes, METRIC_BATCH at a
+    time (outside any counted path)."""
+    from transeditor_tpu_torch.utils.image import to_uint8
+
+    dev = next(g.parameters()).device
+    z, p = codes(n, g.cfg.style_dim, seed=seed)
+    out = []
+    with torch.no_grad():
+        for s in range(0, n, METRIC_BATCH):
+            img = g(z[s:s + METRIC_BATCH].to(dev),
+                    p[s:s + METRIC_BATCH].to(dev)).image
+            out.append(to_uint8(img.float().cpu().numpy()))
+    return np.concatenate(out)
+
+
+def prdc_images_phase(fb, dev, card: str, setup) -> dict:
+    """10b (a main path, counted): ``evaluate_prdc`` of PRDC_IMAGES decodes
+    against a PNG folder (``ImageFolderSource``) of PRDC_IMAGES decodes of
+    the same generator for other seeded codes, so the two feature clouds
+    overlap (unrelated images give four zeros whatever the features),
+    with VGG16-fc7 at the native size, batch 64: the fake side (decode
+    and VGG, events) and the real side (PNG reads on the host, VGG by
+    events) as img/s each.  Precision and coverage must be above 0, and
+    ``compute_prdc`` on the CPU over the same gathered features must give
+    the card's four values."""
+    from transeditor_tpu_torch.data.dataset import ImageFolderSource
+    from transeditor_tpu_torch.metrics import evaluator
+    from transeditor_tpu_torch.metrics.prdc import compute_prdc
+
+    g = setup["g"]
+    ups = g.cfg.log_size - 2
+    folder = setup["root"] / "real"
+    write_pngs(folder, decoded_images(g, N_METRIC_PNGS, seed=31))
+    src = ImageFolderSource(str(folder))
+    read_s = []
+    get = src.get
+
+    def timed_get(i, res):
+        t0 = time.perf_counter()
+        out = get(i, res)
+        read_s.append(time.perf_counter() - t0)
+        return out
+
+    src.get = timed_get
+    timer = EventTimer(setup["nets"]["vgg16"], keep=True)
+    evaluator.evaluate_prdc(g, timer, src, n_samples=METRIC_BATCH,
+                            batch=METRIC_BATCH, seed=1)         # warm
+    timer.spans.clear()
+    timer.outs.clear()
+    read_s.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    start.record()
+    vals = evaluator.evaluate_prdc(g, timer, src, n_samples=PRDC_IMAGES,
+                                   batch=METRIC_BATCH)
+    wall = time.perf_counter() - t0
+    counts = fb.launches.by_role_path         # ... and ends here
+    batches = PRDC_IMAGES // METRIC_BATCH
+    check(counts == {"forward": {"tma": ups * batches}},
+          f"10b evaluate_prdc launches {counts}")
+    check(all(np.isfinite(v) for v in vals.values())
+          and vals["precision"] > 0 and vals["coverage"] > 0, f"10b {vals}")
+    # evaluate_prdc calls the VGG on a batch's decodes, then on its PNGs
+    feats = [torch.cat(timer.outs[i::2]).cpu().numpy() for i in (1, 0)]
+    cpu_vals = compute_prdc(*feats, 3, device="cpu")
+    check(cpu_vals == vals, f"10b evaluate_prdc card {vals} vs CPU "
+                            f"compute_prdc of its features {cpu_vals}")
+    fake, real = timer.spans[0::2], timer.spans[1::2]
+    ends = [start] + [e for _, e in real[:-1]]
+    decode_ms = [a.elapsed_time(s) for a, (s, _) in zip(ends, fake)]
+    vgg_fake = [s.elapsed_time(e) for s, e in fake]
+    vgg_real = [s.elapsed_time(e) for s, e in real]
+    out = {"images": PRDC_IMAGES, "wall_s": wall, "prdc": vals,
+           "prdc_cpu_of_card_features": cpu_vals,
+           "fake_img_per_s": PRDC_IMAGES / ((sum(decode_ms)
+                                             + sum(vgg_fake)) / 1e3),
+           "real_img_per_s": PRDC_IMAGES / (sum(read_s)
+                                            + sum(vgg_real) / 1e3),
+           "png_read_ms_per_image": sum(read_s) / len(read_s) * 1e3,
+           "decode_ms_median": float(np.median(decode_ms)),
+           "vgg_ms_median": float(np.median(vgg_fake + vgg_real)),
+           "launches": counts}
+    print(f"10b evaluate_prdc: {PRDC_IMAGES} + {PRDC_IMAGES} images at batch "
+          f"{METRIC_BATCH}: {wall:.2f} s on {card}; fake side "
+          f"{out['fake_img_per_s']:.1f} img/s (decode "
+          f"{out['decode_ms_median']:.3f} ms + VGG16-fc7 a batch), real side "
+          f"{out['real_img_per_s']:.1f} img/s (PNG reads "
+          f"{out['png_read_ms_per_image']:.2f} ms an image on one host "
+          f"thread); VGG16-fc7 {out['vgg_ms_median']:.3f} ms a batch "
+          f"(median, events); {vals} (CPU on the same features: equal); "
+          f"launches {counts}", flush=True)
+    return out
+
+
+def _ppl_draws(n_batches: int, batch: int, dim: int, seed: int):
+    rng = torch.Generator().manual_seed(seed)
+    return [(torch.randn((2 * batch, 16, dim), generator=rng),
+             torch.randn((2 * batch, 16, dim), generator=rng),
+             np.zeros((), np.float32)) for _ in range(n_batches)]
+
+
+def ppl_phase(fb, dev, card: str, setup) -> dict:
+    """10c (a main path, counted): ``compute_ppl`` for the space 'all' in
+    plus space with the crop (the evaluator's protocol) over PPL_SAMPLES
+    pairs at batch 64, the bf16 generator and the VGG LPIPS: ms per batch
+    (host clock), the protocol's card time.  Then the same endpoints'
+    distances from the bf16 generator and from a float32 generator of
+    the same weights (ms per batch of each), their percentile means and
+    how far apart they are; and 2 pairs at eps 1e-2 in float32, card vs
+    CPU (1e-3 relative)."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.metrics import ppl
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.zoo.lpips import LPIPS
+
+    g, lpips = setup["g"], setup["nets"]["vgg"]
+    ups = g.cfg.log_size - 2
+    batches = PPL_SAMPLES // METRIC_BATCH
+    draws = _ppl_draws(batches, METRIC_BATCH, g.cfg.style_dim, seed=40)
+    ppl.compute_ppl(g, lpips, n_samples=METRIC_BATCH, batch=METRIC_BATCH,
+                    crop=True, draws=draws[:1])                 # warm
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    mean_bf16 = ppl.compute_ppl(g, lpips, space="all", eval_plus=True,
+                                crop=True, n_samples=PPL_SAMPLES,
+                                batch=METRIC_BATCH, draws=draws)
+    wall = time.perf_counter() - t0
+    counts = fb.launches.by_role_path         # ... and ends here
+    check(counts == {"forward": {"tma": ups * batches}},
+          f"10c launches {counts}")
+    ms = wall / batches * 1e3
+
+    g32 = Generator(ModelConfig(**setup["cfg_kw"]), device=dev).eval()
+    g32.load_state_dict(g.state_dict())
+    dists, ms_of = {}, {}
+    for name, gen in (("bf16", g), ("f32", g32)):
+        fn = ppl.make_ppl_batch_fn(gen, lpips, "all", True, True,
+                                   batch=METRIC_BATCH)
+        fn(None, draws[0])                                     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dists[name] = np.concatenate([fn(None, d).cpu().numpy()
+                                      for d in draws])
+        ms_of[name] = (time.perf_counter() - t0) / batches * 1e3
+    means = {k: ppl.percentile_filter_mean(v) for k, v in dists.items()}
+    rel = abs(means["bf16"] - means["f32"]) / abs(means["f32"])
+    check(all(np.isfinite(v).all() for v in dists.values()),
+          "10c non-finite distances")
+    check(abs(mean_bf16 - means["bf16"]) <= 1e-3 * abs(means["bf16"]),
+          f"10c compute_ppl {mean_bf16} vs its batches {means['bf16']}")
+    zero_share = float((dists["bf16"] == 0).mean())
+
+    z, p, t = (a[:4] if a.ndim else a for a in draws[0])
+    cpu_g = Generator(ModelConfig(**setup["cfg_kw"]), device="cpu").eval()
+    cpu_g.load_state_dict({k: v.cpu() for k, v in g32.state_dict().items()})
+    cpu_l = LPIPS("vgg", device="cpu")
+    cpu_l.load_state_dict({k: v.cpu() for k, v in lpips.state_dict().items()})
+    want = ppl.make_ppl_distance_fn(cpu_g, cpu_l.eval(), "all", True, True,
+                                    eps=1e-2)(z, p, t)
+    got = ppl.make_ppl_distance_fn(g32, lpips, "all", True, True,
+                                   eps=1e-2)(z.to(dev), p.to(dev), t).cpu()
+    cvc = ((got - want).abs() / want.abs()).max().item()
+    check(cvc <= 1e-3, f"10c f32 card vs CPU distances: {cvc}")
+    del g32, cpu_g
+    torch.cuda.empty_cache()
+    out = {"space": "all", "samples": PPL_SAMPLES, "batch": METRIC_BATCH,
+           "ms_per_batch_bf16": ms, "ppl_bf16": mean_bf16,
+           "protocol_card_s": 3 * PPL_PROTOCOL / METRIC_BATCH * ms / 1e3,
+           "distance_ms_per_batch": ms_of, "percentile_means": means,
+           "bf16_vs_f32_rel": rel, "bf16_zero_share": zero_share,
+           "f32_card_vs_cpu_eps1e-2_rel": cvc, "launches": counts}
+    print(f"10c PPL (all, plus space, crop, eps 1e-4): {PPL_SAMPLES} pairs at "
+          f"batch {METRIC_BATCH}, bf16 generator + f32 VGG LPIPS: "
+          f"{ms:.2f} ms a batch on {card}; the protocol (3 spaces x "
+          f"{PPL_PROTOCOL}) {out['protocol_card_s']:.1f} s of card; the same "
+          f"endpoints: bf16 {ms_of['bf16']:.2f} / f32 {ms_of['f32']:.2f} ms a "
+          f"batch, percentile means bf16 {means['bf16']:.4g} / f32 "
+          f"{means['f32']:.4g} ({rel:.1%} apart; bf16 distances exactly 0: "
+          f"{zero_share:.1%}); f32 card vs CPU at eps 1e-2: {cvc:.3e} "
+          f"(limit 1e-3); launches {counts}", flush=True)
+    return out
+
+
+def diversity_phase(fb, dev, card: str, setup) -> dict:
+    """10d (a main path, counted): ``evaluate_lpips_diversity`` with
+    n_batches=DIV_BATCHES (3 groups of 40 a round) and the AlexNet LPIPS,
+    after a warm round: ms per group (host clock), the protocol's card
+    time."""
+    from transeditor_tpu_torch.metrics.evaluator import (
+        evaluate_lpips_diversity)
+
+    g, lpips = setup["g"], setup["nets"]["alex"]
+    ups = g.cfg.log_size - 2
+    evaluate_lpips_diversity(g, lpips, n_batches=1, seed=1)     # warm
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    vals = evaluate_lpips_diversity(g, lpips, n_batches=DIV_BATCHES)
+    wall = time.perf_counter() - t0
+    counts = fb.launches.by_role_path         # ... and ends here
+    groups = 3 * DIV_BATCHES
+    check(counts == {"forward": {"tma": ups * groups}},
+          f"10d launches {counts}")
+    check(all(np.isfinite(v) and v > 0 for v in vals.values()),
+          f"10d {vals}")
+    ms = wall / groups * 1e3
+    out = {"groups": groups, "ms_per_group": ms, "lpips": vals,
+           "protocol_card_s": 3 * DIV_PROTOCOL * ms / 1e3,
+           "launches": counts}
+    print(f"10d LPIPS diversity: {groups} groups of 40 (780 pairs each), "
+          f"bf16 generator + f32 AlexNet LPIPS: {ms:.1f} ms a group on "
+          f"{card}; the protocol ({DIV_PROTOCOL} rounds of 3) "
+          f"{out['protocol_card_s']:.1f} s of card; {vals}; launches "
+          f"{counts}", flush=True)
+    return out
+
+
+def profile_fid(dev, setup) -> dict:
+    """10a's profile: one FID batch (sample, decode, Inception) under
+    torch.profiler after a warm one; top kernels and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g, inc = setup["g"], setup["nets"]["inception"]
+    z, p = (t.to(dev) for t in codes(METRIC_BATCH, g.cfg.style_dim, seed=23))
+
+    def batch():
+        with torch.no_grad():
+            return inc(g(z, p).image.float()).cpu()
+
+    batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, blur_us, rows = kernel_table(prof, top=8)
+    check(busy_us > 0, "the FID profile shows no device time")
+    print(f"profile of one FID batch (bf16 decode + f32 InceptionV3, batch "
+          f"{METRIC_BATCH}): device busy {busy_us / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.1%}); "
+          f"fused_blur4 {blur_us / 1e3:.3f} ms", flush=True)
+    for r in rows:
+        print(f"  {r['ms']:9.3f} ms  x{r['calls']:<4d} {r['name']}",
+              flush=True)
+    return {"busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+            "busy_share": busy_us / wall_us, "fused_blur4_ms": blur_us / 1e3,
+            "top": rows}
+
+
+def metrics_vs_plain(fb, dev, setup) -> dict:
+    """10a's replays: one FID batch decode's launches each replayed
+    through ``fused_blur4_plain`` on its own inputs (bf16 within 2 ulps
+    beyond 1e-5; a float32 generator of the same weights within 1e-5 of
+    the plain output's largest); and InceptionV3 features of 4 f32 images
+    card vs CPU (FEAT_REL of the largest)."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.metrics.inception import load_fid_inception
+    from transeditor_tpu_torch.models.generator import Generator
+
+    g = setup["g"]
+    ups = g.cfg.log_size - 2
+    z, p = (t.to(dev) for t in codes(METRIC_BATCH, g.cfg.style_dim, seed=24))
+
+    def decode_with(gen):
+        def decode(zz, pp):
+            with torch.no_grad():
+                return gen(zz, pp).image
+        return decode
+
+    errs = {}
+    bf16 = _replayed(fb, decode_with(g), z, p)
+    check(len(bf16) == ups, f"10 recorded {len(bf16)} bf16 launches")
+    worst = 0.0
+    for shape, y, want in bf16:
+        w = want.float()
+        err = (y.float() - w).abs()
+        check(bool((err <= 2 * bf16_ulp(w) + 1e-5).all()),
+              f"10 bf16 launch {tuple(shape)} beyond 2 ulps")
+        worst = max(worst, err.max().item())
+    errs["bf16_max_abs"] = worst
+    del bf16
+    g32 = Generator(ModelConfig(**setup["cfg_kw"]), device=dev).eval()
+    g32.load_state_dict(g.state_dict())
+    f32 = _replayed(fb, decode_with(g32), z[:16], p[:16])
+    check(len(f32) == ups, f"10 recorded {len(f32)} f32 launches")
+    errs["f32_rel"] = max(((y - w).abs().max() / w.abs().max()).item()
+                          for _, y, w in f32)
+    errs["f32_max_abs"] = max((y - w).abs().max().item() for _, y, w in f32)
+    check(errs["f32_rel"] <= 1e-5,
+          f"10 f32 launch: {errs['f32_rel']} of the plain output's largest")
+    with torch.no_grad():
+        img = g32(z[:4], p[:4]).image.float()
+    del f32, g32
+    torch.cuda.empty_cache()
+    cpu_inc = load_fid_inception(setup["files"]["pt_inception.pth"])
+    with torch.no_grad():
+        want = cpu_inc(img.cpu())
+        got = setup["nets"]["inception"](img).cpu()
+    errs["inception_card_vs_cpu_rel"] = ((got - want).abs().max()
+                                         / want.abs().max()).item()
+    check(errs["inception_card_vs_cpu_rel"] <= FEAT_REL,
+          f"10 Inception card vs CPU {errs['inception_card_vs_cpu_rel']}")
+    print(f"10 replays: one FID batch decode's {ups} launches through the "
+          f"plain version: bf16 largest error {errs['bf16_max_abs']:.3e} "
+          f"(within 2 bf16 ulps), f32 {errs['f32_rel']:.3e} of the plain "
+          f"output's largest (limit 1e-5); InceptionV3 card vs CPU on 4 "
+          f"f32 images {errs['inception_card_vs_cpu_rel']:.3e} of the "
+          f"largest feature (limit {FEAT_REL})", flush=True)
+    return errs
+
+
+def _quiet(main, argv):
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        out = main(argv)
+    return out, said.getvalue()
+
+
+def metric_cli_phase(fb, dev, setup, model_argv: list) -> dict:
+    """10e (main paths, counted): ``cli.calc_stats`` on the real folder
+    (CLI_COUNTS images), ``cli.evaluate --fid --lpips --ppl --prdc`` at small
+    counts from the saved generator and weight files (bf16, batch 64),
+    ``cli.img_metrics`` in its three modes on 16 decoded results against
+    16 PNGs, and ``cli.edit_eval --id_inception`` on two 5-frame strips:
+    file trees, report text and finite values (PRDC's precision and
+    coverage above 0: the real folder is 10b's decodes); launches counted
+    around each CLI that decodes."""
+    import pickle
+
+    from transeditor_tpu_torch.cli import calc_stats, edit_eval, evaluate
+    from transeditor_tpu_torch.cli import img_metrics
+    from transeditor_tpu_torch.utils.image import to_uint8
+
+    g, files, root = setup["g"], setup["files"], setup["root"]
+    ups = g.cfg.log_size - 2
+    dev_argv = ["--device", dev.type]
+    runs = {}
+    stats = root / "stats.pkl"
+    t0 = time.perf_counter()
+    n = CLI_COUNTS
+    _quiet(calc_stats.main, ["--data_dir", str(root / "real"), "--out",
+                             str(stats), "--size", str(g.cfg.size),
+                             "--n_samples", str(n["stats"]), "--batch",
+                             str(METRIC_BATCH), "--inception_weights",
+                             files["pt_inception.pth"], *dev_argv])
+    runs["calc_stats"] = {"s": time.perf_counter() - t0}
+    with open(stats, "rb") as f:
+        saved = pickle.load(f)
+    check(set(saved) == {"mean", "cov", "n"} and saved["n"] == n["stats"]
+          and saved["cov"].shape == (2048, 2048)
+          and bool(np.isfinite(saved["cov"]).all()), "10e calc_stats pickle")
+
+    argv = ["--ckpt", files["g"], "--batch", str(METRIC_BATCH),
+            "--fid", "--fid_samples", str(n["fid"]),
+            "--inception_stats", str(stats), "--inception_weights",
+            files["pt_inception.pth"], "--lpips", "--lpips_batches", "1",
+            "--lpips_weights", files["lpips_alex.pth"], "--ppl",
+            "--ppl_samples", str(n["ppl"]), "--ppl_lpips_weights",
+            files["lpips_vgg.pth"], "--prdc", "--prdc_samples",
+            str(n["prdc"]), "--real_data", str(root / "real"),
+            "--vgg16_weights", files["vgg16.pth"], *model_argv, *dev_argv]
+    torch.cuda.synchronize()
+    fb.launches.reset()                       # the main path starts here
+    t0 = time.perf_counter()
+    results, said = _quiet(evaluate.main, argv)
+    torch.cuda.synchronize()
+    runs["evaluate"] = {"s": time.perf_counter() - t0,
+                        "launches": fb.launches.by_role_path}
+    want = ups * (n["fid"] // METRIC_BATCH + 3 + 3 * n["ppl"] // METRIC_BATCH
+                  + n["prdc"] // METRIC_BATCH)
+    check(runs["evaluate"]["launches"] == {"forward": {"tma": want}},
+          f"10e cli.evaluate launches {runs['evaluate']['launches']}")
+    lines = [json.loads(x) for x in said.splitlines() if x.startswith("{")]
+    check([list(d) for d in lines] == [["prdc"], ["ckpt", "fid", "lpips",
+                                                  "ppl", "prdc"]],
+          f"10e cli.evaluate lines {said[-400:]}")
+    rep = lines[1]
+    values = [rep["fid"], *rep["lpips"].values(), *rep["ppl"].values(),
+              *rep["prdc"].values()]
+    check(bool(np.isfinite(values).all()) and "WARNING" not in said
+          and rep["prdc"]["precision"] > 0 and rep["prdc"]["coverage"] > 0,
+          f"10e cli.evaluate report {rep}")
+    runs["evaluate"]["report"] = rep
+
+    res, gt = root / "pairs" / "results", root / "pairs" / "gt"
+    zc, pc = (t.to(dev) for t in codes(16, g.cfg.style_dim, seed=50))
+    with torch.no_grad():
+        decoded = to_uint8(g(zc, pc).image.float().cpu().numpy())
+    write_pngs(res, decoded)
+    write_pngs(gt, smooth_images(16, g.cfg.size, seed=51))
+    for mode, extra in (("l2", []),
+                        ("lpips", ["--lpips_weights",
+                                   files["lpips_alex.pth"]]),
+                        ("id", ["--arcface", files["ir_se50.pth"],
+                                "--arcface_depth", "50", "--arcface_mode",
+                                "ir_se"])):
+        t0 = time.perf_counter()
+        _quiet(img_metrics.main, ["--mode", mode, "--data_path", str(res),
+                                  "--gt_path", str(gt), *extra, *dev_argv])
+        report = root / "pairs" / "inference_metrics"
+        scores = json.loads((report / f"scores_{mode}.json").read_text())
+        text = (report / f"stat_{mode}.txt").read_text()
+        check(len(scores) == 16 and bool(np.isfinite(
+            list(scores.values())).all()), f"10e img_metrics {mode}")
+        check(text.startswith("New Average score is " if mode == "id"
+                              else "Average loss is "), f"10e {text}")
+        runs[f"img_metrics_{mode}"] = {"s": time.perf_counter() - t0,
+                                       "stat": text}
+
+    strips = root / "strips" / "z_plus"
+    strips.mkdir(parents=True)
+    with torch.no_grad():
+        frames = to_uint8(g(zc[:10], pc[:10]).image.float().cpu().numpy())
+    from transeditor_tpu_torch.utils.image import save_png
+    for k, im in enumerate(frames):
+        save_png(str(strips / f"origin_{k // 5}_edit_{k % 5}_age_0.png"), im)
+    t0 = time.perf_counter()
+    _quiet(edit_eval.main, ["--strips_dir", str(root / "strips"),
+                            "--edited_attr", "age", "--id_inception",
+                            files["pt_inception.pth"], "--out",
+                            str(root / "id.json"), *dev_argv])
+    report = json.loads((root / "id.json").read_text())
+    ids = report.get("id_preservation_inception", {})
+    check(list(ids) == ["z_plus"] and 0 < ids["z_plus"] <= 1 + 1e-6,
+          f"10e edit_eval --id_inception {report}")
+    runs["edit_eval_id_inception"] = {"s": time.perf_counter() - t0,
+                                      "report": ids}
+    print(f"10e CLIs: calc_stats ({n['stats']} images) "
+          f"{runs['calc_stats']['s']:.2f} "
+          f"s; evaluate --fid {n['fid']} --lpips 1 round --ppl {n['ppl']} "
+          f"--prdc {n['prdc']} {runs['evaluate']['s']:.2f} s, launches "
+          f"{runs['evaluate']['launches']}, {rep}; img_metrics "
+          + ", ".join(f"{m} {runs[f'img_metrics_{m}']['s']:.2f} s "
+                      f"'{runs[f'img_metrics_{m}']['stat']}'"
+                      for m in ("l2", "lpips", "id"))
+          + f"; edit_eval --id_inception "
+          f"{runs['edit_eval_id_inception']['s']:.2f} s {ids}", flush=True)
+    return {"runs": runs,
+            "launches": {"evaluate": runs["evaluate"]["launches"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2848,6 +3612,15 @@ def main() -> int:
     edited = {"sweep": edit_sweep_phase(fb, dev, card, esetup),
               "svm": svm_phase(dev, edit_root)}
     edited["phase_s"] = time.time() - t9
+    t10 = time.time()
+    metric_root = pathlib.Path(__file__).resolve().parent / "build" / \
+        "smoke_metrics"
+    shutil.rmtree(metric_root, ignore_errors=True)
+    msetup = metric_setup(dev, metric_root)
+    metrics = {"fid": fid_phase(fb, dev, card, msetup)}
+    del msetup                    # rebuilt from its files after phase 9
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.time() - t10
     rows = kernel_times(fb, dev)
     gen["profile"] = [profile_forward(g, dev, b) for b in (1, 64)]
     paths = serve_phase(fb, dev, g)
@@ -2920,6 +3693,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     edited["phase_s"] += time.time() - t9
     print(f"phase 9: {edited['phase_s']:.1f} s", flush=True)
+    t10 = time.time()
+    try:
+        msetup = metric_setup(dev, metric_root)
+        metrics["profile"] = profile_fid(dev, msetup)
+        metrics["kernel_vs_plain"] = metrics_vs_plain(fb, dev, msetup)
+        metrics["prdc_knn"] = prdc_knn_phase(dev)
+        metrics["prdc"] = prdc_images_phase(fb, dev, card, msetup)
+        metrics["ppl"] = ppl_phase(fb, dev, card, msetup)
+        metrics["diversity"] = diversity_phase(fb, dev, card, msetup)
+        metrics["cli"] = metric_cli_phase(fb, dev, msetup, [])
+    finally:
+        shutil.rmtree(metric_root, ignore_errors=True)
+    del msetup
+    torch.cuda.empty_cache()
+    metrics["phase_s"] += time.time() - t10
+    print(f"phase 10: {metrics['phase_s']:.1f} s", flush=True)
+    metric_launches = {
+        k: metrics[k]["launches"] for k in ("fid", "prdc", "ppl",
+                                            "diversity")}
+    metric_launches["cli_evaluate"] = metrics["cli"]["launches"]["evaluate"]
     edit_launches = {"sweep": edited["sweep"]["launches"],
                      "strips": edited["strips"]["launches"],
                      **{f"cli_{k}": v
@@ -2945,7 +3738,8 @@ def main() -> int:
         + total(projected["cli"]["launches"])
         + sum(total(c) for c in coached["launches"].values())
         + sum(total(c) for c in coached["cli"]["launches"].values())
-        + sum(total(c) for c in edit_launches.values()),
+        + sum(total(c) for c in edit_launches.values())
+        + sum(total(c) for c in metric_launches.values()),
         "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
         "cli_train_launches": cli["train"]["launches"],
@@ -2971,12 +3765,20 @@ def main() -> int:
         # 9c: one strip decode's launches replayed through the plain
         # version (bf16 within 2 ulps, f32 within 1e-5 of the largest)
         "edit_launch_errors": edited["strips"]["replay"],
+        # phase 10, each from 0: evaluate_fid (10a), evaluate_prdc (10b),
+        # compute_ppl (10c), evaluate_lpips_diversity (10d), cli.evaluate
+        # (10e)
+        "metric_launches": metric_launches,
+        # one FID batch decode's launches replayed through the plain
+        # version (bf16 within 2 ulps, f32 within 1e-5 of the largest)
+        "metric_launch_errors": metrics["kernel_vs_plain"],
         "launches_per_train_step": {k: v["launches"]
                                     for k, v in train_counts.items()},
         "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
                            grad_errs["max_abs_err"],
                            coached["kernel_vs_plain"]["max_abs_err"],
                            edited["strips"]["replay"]["f32_max_abs"],
+                           metrics["kernel_vs_plain"]["f32_max_abs"],
                            *(r["max_abs_err"] for r in rows)),
         "max_err_f32": errs["max_err_f32"],
         "max_err_bf16": max(errs["max_err_bf16"],
@@ -3019,6 +3821,7 @@ def main() -> int:
     print(json.dumps({"project": projected}), flush=True)
     print(json.dumps({"coach": coached}), flush=True)
     print(json.dumps({"edit": edited}), flush=True)
+    print(json.dumps({"metrics": metrics}), flush=True)
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s",
           flush=True)
     print(f"card: {card}", flush=True)

@@ -532,3 +532,130 @@ def test_strip_decode_launches_all_on_the_tma_path(dev):
         assert strip.images.shape == (7, 32, 32, 3)
         assert np.isfinite(strip.images).all() and np.isfinite(
             strip.scores).all()
+
+
+def _he_inception(seed: int = 0):
+    """An InceptionV3 on the CPU with He-scaled convs (features O(1); the
+    N(0, 0.1) init blows them up to ~1e10) and folded BNs near 1 / 0."""
+    from transeditor_tpu_torch.metrics.inception import InceptionV3Features
+
+    net = InceptionV3Features(device="cpu", seed=seed).eval()
+    rng = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("weight"):
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=rng)
+                        * (2.0 / fan_in) ** 0.5)
+            elif name.endswith("scale"):
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=rng))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=rng))
+    return net
+
+
+@pytest.mark.parametrize("size", [64, 256])
+def test_inception_card_matches_cpu(dev, size):
+    """InceptionV3 features (resized to 299) on the card (cuDNN, TF32 off)
+    against the same weights on the CPU: within 1e-4 of the largest."""
+    import copy
+
+    cpu = _he_inception(1)
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.from_numpy(np.random.RandomState(size).uniform(
+        -1, 1, (4, size, size, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    assert got.shape == (4, 2048)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_vgg16_fc7_card_matches_cpu(dev):
+    """PRDC's VGG16-fc7 at the native 256px, card vs CPU: 1e-4 of the
+    largest."""
+    import copy
+
+    from transeditor_tpu_torch.zoo.backbones import VGG16Fc7
+
+    torch.manual_seed(0)
+    cpu = VGG16Fc7().eval()
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.from_numpy(np.random.RandomState(2).uniform(
+        -1, 1, (2, 256, 256, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_prdc_card_equals_cpu(dev):
+    """The streamed k-NN on the card (float32, TF32 off) gives the CPU's
+    counts: the four values equal, over chunks that do not divide N."""
+    from transeditor_tpu_torch.metrics.prdc import compute_prdc
+
+    rng = np.random.default_rng(3)
+    real = rng.standard_normal((3000, 256)).astype(np.float32)
+    fake = (rng.standard_normal((2500, 256)) * 1.1 + 0.05).astype(np.float32)
+    for k in (3, 5):
+        assert (compute_prdc(real, fake, k, 700, device=dev)
+                == compute_prdc(real, fake, k, 700, device="cpu"))
+
+
+def test_ppl_distances_card_match_cpu(dev):
+    """PPL distances at eps 1e-2 (crop, plus space) of a float32 32px
+    generator and a VGG LPIPS, card vs CPU: 1e-3 relative."""
+    from transeditor_tpu_torch.metrics.ppl import make_ppl_distance_fn
+    from transeditor_tpu_torch.zoo.lpips import LPIPS
+
+    cfg = ModelConfig(size=32, max_channels=64, n_trans=1)
+    nets = {}
+    for d in ("cpu", dev):
+        nets[str(d)] = (Generator(cfg, device=d, seed=0).eval(),
+                        LPIPS("vgg", device=d, seed=1).eval())
+    rng = np.random.RandomState(4)
+    z, p = (torch.from_numpy(rng.randn(8, 16, 512).astype(np.float32))
+            for _ in range(2))
+    out = {}
+    for d, (g, lpips) in nets.items():
+        fn = make_ppl_distance_fn(g, lpips, "all", True, True, eps=1e-2)
+        out[d] = fn(z.to(d), p.to(d), 0.0).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=0)
+
+
+def test_fid_batch_launches_replayed_through_plain(dev, monkeypatch):
+    """A FID batch (bf16 32px decode, batch 4): one forward launch per
+    up-conv, all TMA; each launch replayed through the plain version
+    within 2 bf16 ulps beyond 1e-5.  (The 2,048-wide Fréchet distance, a
+    host sqrtm, is not this test's: its statistics' trace stands in.)"""
+    from transeditor_tpu_torch.metrics import evaluator
+    from transeditor_tpu_torch.metrics.evaluator import evaluate_fid
+
+    monkeypatch.setattr(evaluator, "frechet_distance",
+                        lambda m, c, rm, rc: float(np.trace(c)))
+
+    cfg = ModelConfig(size=32, max_channels=64, n_trans=1, dtype="bfloat16")
+    g = Generator(cfg, device=dev, seed=0).eval()
+    inc = _he_inception(2).to(dev)
+    blur, calls = fused_blur._blur, []
+
+    def recording(x, taps, pad, scale, bias, act, role):
+        y = blur(x, taps, pad, scale, bias, act, role)
+        calls.append((x, taps, pad, scale, bias, act, y))
+        return y
+
+    fused_blur.launches.reset()
+    fused_blur._blur = recording
+    try:
+        fid = evaluate_fid(g, inc, np.zeros(2048), np.eye(2048),
+                           n_samples=4, batch=4)
+    finally:
+        fused_blur._blur = blur
+    ups = cfg.log_size - 2
+    assert fused_blur.launches.by_role_path == {"forward": {"tma": ups}}
+    assert np.isfinite(fid) and len(calls) == ups
+    for x, taps, pad, scale, bias, act, y in calls:
+        want = fused_blur.fused_blur4_plain(x, taps, pad, scale, bias,
+                                            act).float()
+        err = (y.float() - want).abs()
+        assert bool((err <= 2 * _bf16_ulp(want) + 1e-5).all())

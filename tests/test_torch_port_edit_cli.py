@@ -11,7 +11,9 @@ not within ``SCORE_ATOL`` of 0.5.  ``cli.edit_eval`` reads JAX's strips
 in both packages with the pose and a narrowed CelebA-HQ classifier and
 ``--boundaries``: the JSON reports agree within ``SCORE_ATOL`` (scores)
 and 1e-5 (cosines).  ``--arcface`` runs on 224px strips written by the
-test (the ArcFace crop needs 224px): ID similarities within 1e-4.  The
+test (the ArcFace crop needs 224px): ID similarities within 1e-4;
+``--id_inception`` reads one random pytorch-fid InceptionV3 checkpoint
+in both: InceptionV3 ID similarities within 1e-5.  The
 sampled variant draws with ``jax.random`` in JAX and a
 ``torch.Generator`` in the port, and without ``--classifier_ckpt`` the
 random classifiers differ too, so there only the file tree is compared,
@@ -31,6 +33,7 @@ from transeditor_tpu.cli.edit_eval import main as jax_edit_eval
 
 import torch_port_edit_oracle as eo
 import torch_port_encoder_oracle as orc
+import torch_port_metrics_oracle as mo
 from transeditor_tpu_torch.cli import edit as cli_edit
 from transeditor_tpu_torch.cli import edit_eval as cli_eval
 from transeditor_tpu_torch.config import ModelConfig
@@ -201,8 +204,40 @@ def test_edit_eval_arcface_matches_jax(tmp_path):
     assert abs(got - want) < 1e-4
 
 
-def test_edit_eval_id_inception_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15"):
+def test_edit_eval_id_inception_matches_jax(tmp_path):
+    """``--id_inception WEIGHTS``: the same pytorch-fid checkpoint in both
+    CLIs (a random one, He-scaled: ``torch_port_metrics_oracle``), two
+    spaces' 64px strips: the InceptionV3 ID similarities within 1e-5."""
+    rng = np.random.default_rng(5)
+    for space in ("z_plus", "p_plus"):
+        d = tmp_path / "strips" / space
+        d.mkdir(parents=True)
+        base = rng.integers(0, 256, (64, 64, 3)).astype(np.int16)
+        for j in range(3):
+            frame = np.clip(base + rng.integers(-40, 41, base.shape), 0, 255)
+            save_png(str(d / f"origin_0_edit_{j}_age_{j}.png"),
+                     frame.astype(np.uint8))
+    inc = mo.save_sd(tmp_path / "pt_inception.pth", mo.fid_inception_sd(3))
+    reports = {}
+    for name, run in (("jax", jax_edit_eval), ("port", cli_eval.main)):
+        out = str(tmp_path / f"{name}.json")
+        argv = ["--strips_dir", str(tmp_path / "strips"), "--edited_attr",
+                "age", "--id_inception", inc, "--out", out]
+        run(argv + (["--device", "cpu"] if name == "port" else []))
+        with open(out) as f:
+            reports[name] = json.load(f)
+    assert list(reports["port"]) == list(reports["jax"]) == [
+        "id_preservation_inception"]
+    want = reports["jax"]["id_preservation_inception"]
+    got = reports["port"]["id_preservation_inception"]
+    assert set(got) == set(want) == {"z_plus", "p_plus"}
+    for space in want:
+        assert 0 < want[space] < 1
+        assert abs(got[space] - want[space]) < 1e-5
+
+
+def test_edit_eval_id_inception_needs_weights(tmp_path):
+    with pytest.raises(ValueError, match="InceptionV3 weights"):
         cli_eval.main(["--strips_dir", str(tmp_path), "--edited_attr",
                        "age", "--id_inception", "--device", "cpu"])
 

@@ -15,8 +15,9 @@ Usage, on the card:
       [--device cuda]
 
 Frames are read with ``utils/image.py::load_png`` (no PIL).
-``--id_inception`` needs the InceptionV3 of the metrics slice, which the
-port does not have yet: it raises ``NotImplementedError``.
+``--id_inception WEIGHTS`` reports ID drift in InceptionV3 pool3 space
+from a pytorch-fid checkpoint; without a path it raises ``ValueError``
+(the JAX CLI's random flax network cannot be reproduced).
 """
 
 from __future__ import annotations
@@ -85,19 +86,18 @@ def main(argv=None):
     ap.add_argument("--arcface", type=str, default=None)
     ap.add_argument("--id_inception", nargs="?", const="", default=None,
                     help="ID drift in InceptionV3 pool3 feature space; "
-                         "needs metrics/inception.py, not yet in the "
-                         "port (raises NotImplementedError)")
+                         "takes the pytorch-fid weights' path")
     ap.add_argument("--boundaries", nargs="*", default=None,
                     help="boundary .npy files to cross-compare")
     ap.add_argument("--out", type=str, default=None)
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.id_inception is not None:
-        raise NotImplementedError(
-            "--id_inception needs InceptionV3 (metrics/inception.py), "
-            "which comes with the metrics slice of the port (ROADMAP "
-            "Queue 1, item 15)")
+    if args.id_inception == "":
+        raise ValueError(
+            "--id_inception needs the InceptionV3 weights' path (a "
+            "pytorch-fid checkpoint): the port has no random stand-in for "
+            "the JAX CLI's flax initialisation")
 
     dev = resolve_device(args.device)
     strips = load_strips(args.strips_dir)
@@ -149,6 +149,21 @@ def main(argv=None):
                 return arc(resize_112(face_crop(x)))
 
         report["id_preservation"] = _id_report(arc_embed)
+
+    if args.id_inception:
+        # ID drift in the reference's feature space (InceptionV3 pool3),
+        # as the mean cosine similarity of each step to the strip center;
+        # inputs stay in [-1, 1]
+        from transeditor_tpu_torch.metrics.inception import load_fid_inception
+        inc = load_fid_inception(args.id_inception).to(dev)
+
+        def inc_embed(img):
+            x = torch.as_tensor(img).to(dev, torch.float32)
+            with torch.no_grad():
+                f = inc(x)
+            return f * torch.rsqrt((f * f).sum(dim=-1, keepdim=True) + 1e-12)
+
+        report["id_preservation_inception"] = _id_report(inc_embed)
 
     if args.boundaries and len(args.boundaries) >= 2:
         cos = {}

@@ -20,7 +20,6 @@ import os
 import warnings
 
 import numpy as np
-import torch
 
 from transeditor_tpu_torch.cli.common import (add_model_flags,
                                               model_config_from_args)
@@ -32,20 +31,7 @@ from transeditor_tpu_torch.invert.projector import (ProjectorConfig,
 from transeditor_tpu_torch.io.checkpoint import load_reference_generator
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.utils.image import save_png, to_uint8
-from transeditor_tpu_torch.zoo.lpips import LPIPS, load_lpips_params
-
-
-def load_lpips(path: str | None, device: torch.device) -> LPIPS:
-    """The VGG LPIPS of ``path`` (a richzhang or StarGAN-v2 state dict),
-    or a random one, with a warning, when no path is given."""
-    lpips = LPIPS(net="vgg", device=device)
-    if path:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        lpips.load_state_dict(load_lpips_params(sd, net="vgg"), strict=True)
-    else:
-        warnings.warn("no --lpips_weights given; using random LPIPS "
-                      "(inversion quality will be poor)")
-    return lpips
+from transeditor_tpu_torch.zoo.lpips import load_lpips
 
 
 def main(argv=None):
@@ -72,7 +58,10 @@ def main(argv=None):
     g = Generator(cfg, device=dev)
     g.load_state_dict(load_reference_generator(args.ckpt, cfg), strict=True)
     g.eval()
-    lpips = load_lpips(args.lpips_weights, dev)
+    lpips = load_lpips(args.lpips_weights, "vgg", dev)
+    if not args.lpips_weights:
+        warnings.warn("no --lpips_weights given; using random LPIPS "
+                      "(inversion quality will be poor)")
 
     pcfg = ProjectorConfig(steps=args.step, lr=args.lr,
                            mse_weight=args.mse,

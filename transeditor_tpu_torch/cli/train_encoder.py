@@ -42,18 +42,7 @@ from transeditor_tpu_torch.train.coach import (CoachConfig,
                                                make_coach)
 from transeditor_tpu_torch.train.loop import MetricLogger
 from transeditor_tpu_torch.utils.image import make_grid, save_png
-from transeditor_tpu_torch.zoo.lpips import LPIPS, load_lpips_params
-
-
-def load_alex_lpips(path: str | None, device: torch.device) -> LPIPS:
-    """The AlexNet LPIPS of ``path``, or a random one with a warning."""
-    lpips = LPIPS(net="alex", device=device)
-    if path:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        lpips.load_state_dict(load_lpips_params(sd, net="alex"), strict=True)
-    else:
-        warnings.warn("no --lpips_weights given; using random LPIPS weights")
-    return lpips
+from transeditor_tpu_torch.zoo.lpips import load_lpips
 
 
 def main(argv=None):
@@ -88,7 +77,9 @@ def main(argv=None):
     decoder.load_state_dict(load_reference_generator(args.ckpt, cfg),
                             strict=True)
     decoder.eval()
-    lpips = load_alex_lpips(args.lpips_weights, dev)
+    lpips = load_lpips(args.lpips_weights, "alex", dev)
+    if not args.lpips_weights:
+        warnings.warn("no --lpips_weights given; using random LPIPS weights")
 
     id_loss = None
     if args.arcface and args.id_lambda > 0:

@@ -16,3 +16,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_of(module: torch.nn.Module) -> torch.device:
+    """The device of ``module``'s first parameter."""
+    return next(module.parameters()).device

@@ -28,9 +28,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from transeditor_tpu_torch.device import device_of
 from transeditor_tpu_torch.edit.boundary import (linear_interpolate,
                                                  train_boundary)
-from transeditor_tpu_torch.invert.projector import _device_of
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.utils.image import make_grid, save_png, to_uint8
 from transeditor_tpu_torch.utils.sampling import sample_zp
@@ -58,7 +58,7 @@ def _codes(g: Generator, rng: torch.Generator, batch: int,
     """(Z, P) [batch, T, D] on the generator's device: ``drawn`` (numpy
     or tensors) when given, else drawn from ``rng``."""
     if drawn is not None:
-        dev = _device_of(g)
+        dev = device_of(g)
         return tuple(torch.tensor(np.asarray(a), dtype=torch.float32,
                                   device=dev) for a in drawn)
     cfg = g.cfg
@@ -82,7 +82,7 @@ def collect_scored_latents(
     (Z, P) pair of [batch, T, D] codes a batch in place of the seeded
     draws."""
     cfg = g.cfg
-    rng = torch.Generator(device=_device_of(g)).manual_seed(seed)
+    rng = torch.Generator(device=device_of(g)).manual_seed(seed)
     score = _scorer_or_zeros(scorer)
 
     dim = cfg.n_tokens * cfg.style_dim
@@ -145,7 +145,7 @@ def make_strip_decoder(g: Generator, scorer: Optional[Callable] = None):
     the generator's device: a [steps, 16, 512] x2 plus-space strip decoded
     as one batch, without gradients."""
     score = _scorer_or_zeros(scorer)
-    dev = _device_of(g)
+    dev = device_of(g)
 
     def decode(z_strip, p_strip):
         z_strip = torch.as_tensor(z_strip, dtype=torch.float32, device=dev)
@@ -215,7 +215,7 @@ def run_noinversion_sweep(
     ``n_edit_samples`` (Z, P) pairs (or take ``draws``), save their
     decodes as ``origin_image/sample_gen.png``, and save each one's
     strips."""
-    rng = torch.Generator(device=_device_of(g)).manual_seed(seed)
+    rng = torch.Generator(device=device_of(g)).manual_seed(seed)
     z, p = _codes(g, rng, n_edit_samples, truncation, draws)
     with torch.no_grad():
         zp, pp = g.map_codes(z, p)

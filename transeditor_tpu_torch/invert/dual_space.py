@@ -11,7 +11,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from transeditor_tpu_torch.invert.projector import _device_of, _tensor
+from transeditor_tpu_torch.device import device_of
+from transeditor_tpu_torch.invert.projector import _tensor
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.models.psp import GradualStyleEncoder, PSPModel
 
@@ -26,9 +27,9 @@ class DualSpaceEncoder:
                  latent_avg: Optional[Sequence] = None,
                  start_from_latent_avg: bool = True,
                  seed: int | torch.Generator = 0):
-        self.dev = _device_of(decoder)
-        if _device_of(encoder) != self.dev:
-            raise ValueError(f"the encoder is on {_device_of(encoder)}, "
+        self.dev = device_of(decoder)
+        if device_of(encoder) != self.dev:
+            raise ValueError(f"the encoder is on {device_of(encoder)}, "
                              f"the decoder on {self.dev}")
         self.psp = PSPModel(encoder.eval(), decoder.eval())
         if latent_avg is None and start_from_latent_avg:

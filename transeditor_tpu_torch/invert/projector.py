@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from transeditor_tpu_torch.config import ModelConfig
-from transeditor_tpu_torch.device import resolve_device
+from transeditor_tpu_torch.device import device_of, resolve_device
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.utils.sampling import sample_zp
 from transeditor_tpu_torch.zoo.lpips import LPIPS
@@ -110,10 +110,6 @@ def _tensor(x, dev: torch.device) -> torch.Tensor:
     return x.float().to(dev)
 
 
-def _device_of(module: torch.nn.Module) -> torch.device:
-    return next(module.parameters()).device
-
-
 @torch.no_grad()
 def estimate_latent_stats(g: Generator, seed: int | torch.Generator = 0,
                           n_samples: int = 10_000, chunk: int = 1000,
@@ -126,7 +122,7 @@ def estimate_latent_stats(g: Generator, seed: int | torch.Generator = 0,
     the reference's latent_std.  ``draws``: the chunks' (z, p) pairs, in
     place of ``n_samples // chunk`` draws from ``seed`` (a generator on
     the generator's device, or the seed of a new one)."""
-    cfg, dev = g.cfg, _device_of(g)
+    cfg, dev = g.cfg, device_of(g)
     if draws is None:
         rng = (seed if isinstance(seed, torch.Generator)
                else torch.Generator(dev).manual_seed(seed))
@@ -252,8 +248,8 @@ def project(g: Generator, lpips: LPIPS, target_images,
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     for name, m in (("generator", g), ("lpips", lpips)):
-        if _device_of(m) != dev:
-            raise ValueError(f"the {name} is on {_device_of(m)}, the "
+        if device_of(m) != dev:
+            raise ValueError(f"the {name} is on {device_of(m)}, the "
                              f"projector runs on {dev}")
     cfg = g.cfg
     rng = torch.Generator(dev).manual_seed(seed)

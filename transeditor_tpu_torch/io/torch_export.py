@@ -378,3 +378,27 @@ def celebahq_classifier_state_dict_from_jax(variables: Dict[str, Any]
     dense("4x4.dense0", p["pred_dense0"])
     dense("4x4.dense1", p["pred_dense1"])
     return _torch_sd(sd)
+
+
+# ---------------------------------------------------------------------
+# the FID InceptionV3: the JAX ``InceptionV3Features`` tree (BN already
+# folded) -> the port's ``{name}.{weight,scale,bias}``
+
+def inception_state_dict_from_jax(variables: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionV3Features`` variables (``port_fid_inception_weights``'s
+    tree) -> the port's ``InceptionV3Features`` state dict: each ConvBN's
+    HWIO ``weight`` to OIHW, its ``scale`` and ``bias`` as they are."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        if "weight" in tree:
+            sd[f"{prefix}.weight"] = _conv_oihw(tree["weight"])
+            sd[f"{prefix}.scale"] = np.asarray(tree["scale"], np.float32)
+            sd[f"{prefix}.bias"] = np.asarray(tree["bias"], np.float32)
+            return
+        for k, v in tree.items():
+            walk(v, f"{prefix}.{k}" if prefix else k)
+
+    walk(variables["params"], "")
+    return _torch_sd(sd)

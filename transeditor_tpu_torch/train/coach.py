@@ -37,8 +37,8 @@ from typing import Optional, Sequence
 import torch
 
 from transeditor_tpu_torch.config import ModelConfig
-from transeditor_tpu_torch.invert.projector import (_device_of, _frozen,
-                                                    _tensor)
+from transeditor_tpu_torch.device import device_of
+from transeditor_tpu_torch.invert.projector import _frozen, _tensor
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.models.irse import init_weights
 from transeditor_tpu_torch.models.psp import GradualStyleEncoder, PSPModel
@@ -140,7 +140,7 @@ def make_coach(cfg: ModelConfig, ccfg: CoachConfig, decoder: Generator,
     holds detached float32 scalars.  ``id_loss`` is optional (no ID term
     without it), as is ``latent_avg`` (z [T, D], p [T, D]).
     """
-    dev = _device_of(decoder)
+    dev = device_of(decoder)
     frozen = [decoder, lpips]
     if id_loss is not None:
         frozen.append(id_loss.arcface)

@@ -1,8 +1,8 @@
 """Image conversion helpers, and image reading, writing and resizing
 without PIL: PNG through zlib, JPEG through the native runtime
-(``data/native.py``), and PIL's LANCZOS resize.  PNG unfiltering and
-the resize's passes run in ``csrc/image_io.cpp``, built with g++ at
-first use."""
+(``data/native.py``), and PIL's LANCZOS and BILINEAR resizes.  PNG
+unfiltering and the resize's passes run in ``csrc/image_io.cpp``, built
+with g++ at first use."""
 
 from __future__ import annotations
 
@@ -199,14 +199,24 @@ def _lanczos(x: float) -> float:
     return sinc(x) * sinc(x / 3.0)
 
 
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+# PIL's filters by name: (kernel, support at scale 1)
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bilinear": (_triangle, 1.0)}
+
+
 @functools.lru_cache(maxsize=16)
-def _lanczos_coeffs(in_size: int, out_size: int):
+def _coeffs(in_size: int, out_size: int, filt: str):
     """Per output pixel: its first input pixel and how many it reads
     ([out, 2] int32), and their fixed-point weights ([out, K] int32, 0
-    past each pixel's support)."""
+    past each pixel's support), for PIL's filter ``filt``."""
+    kernel, base_support = _FILTERS[filt]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     ss = 1.0 / filterscale
     bounds = np.zeros((out_size, 2), np.int32)
@@ -215,7 +225,7 @@ def _lanczos_coeffs(in_size: int, out_size: int):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        k = [kernel((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = sum(k)
         for x, v in enumerate(k):
             v = v / total if total != 0.0 else v
@@ -226,9 +236,10 @@ def _lanczos_coeffs(in_size: int, out_size: int):
     return bounds, wts
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   filt: str) -> np.ndarray:
     """One pass (axis 0: vertical, 1: horizontal) of [H, W, C] uint8."""
-    bounds, wts = _lanczos_coeffs(img.shape[axis], out_size)
+    bounds, wts = _coeffs(img.shape[axis], out_size, filt)
     img = np.ascontiguousarray(img)
     h, w, c = img.shape
     outer, n_in, inner = (h, w, c) if axis == 1 else (1, h, w * c)
@@ -239,6 +250,16 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return out
 
 
+def _resize(img: np.ndarray, width: int, height: int, filt: str
+            ) -> np.ndarray:
+    img = np.asarray(img, np.uint8)
+    if img.shape[1] != width:
+        img = _resample_axis(img, width, 1, filt)
+    if img.shape[0] != height:
+        img = _resample_axis(img, height, 0, filt)
+    return img
+
+
 def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """[H, W, C] uint8 -> [height, width, C] uint8 as PIL's
     ``Image.resize((width, height), Image.LANCZOS)``: separable Lanczos
@@ -246,9 +267,12 @@ def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
     normalised per output pixel and rounded to 22-bit fixed point, the
     horizontal pass first, rounded to 8 bits, then the vertical one.
     An axis whose size does not change is not resampled."""
-    img = np.asarray(img, np.uint8)
-    if img.shape[1] != width:
-        img = _resample_axis(img, width, axis=1)
-    if img.shape[0] != height:
-        img = _resample_axis(img, height, axis=0)
-    return img
+    return _resize(img, width, height, "lanczos")
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """[H, W, C] uint8 -> [height, width, C] uint8 as PIL's
+    ``Image.resize((width, height), Image.BILINEAR)``: the same passes as
+    ``resize_lanczos`` with a triangle filter of support 1, widened by
+    the downscale factor."""
+    return _resize(img, width, height, "bilinear")

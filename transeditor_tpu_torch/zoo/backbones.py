@@ -155,6 +155,23 @@ class VGG16Fc7(nn.Module):
         return F.relu(fc7(F.relu(fc6(h))))
 
 
+def load_vgg16_fc7(sd_or_path) -> VGG16Fc7:
+    """A torchvision vgg16 state dict (or its path) -> ``VGG16Fc7`` on the
+    CPU in eval mode: ``features.*``, ``classifier.0.*`` and
+    ``classifier.3.*`` loaded with ``strict=True``, the 1000-way
+    ``classifier.6`` not read (the JAX package's ``port_vgg16_fc7``)."""
+    from transeditor_tpu_torch.io.checkpoint import read_torch_file
+
+    sd = (read_torch_file(sd_or_path) if isinstance(sd_or_path, str)
+          else sd_or_path)
+    keep = {k: torch.as_tensor(v) for k, v in sd.items()
+            if k.startswith(("features.", "classifier.0.",
+                             "classifier.3."))}
+    net = VGG16Fc7()
+    net.load_state_dict(keep, strict=True)
+    return net.eval()
+
+
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
 

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from transeditor_tpu_torch.device import resolve_device
+from transeditor_tpu_torch.io.checkpoint import read_torch_file
 from transeditor_tpu_torch.zoo.backbones import (VGG16_CFG, VGG16_TAPS,
                                                  AlexNetFeatures, VGGFeatures)
 
@@ -149,6 +150,23 @@ def load_lpips_params(sd: Mapping, net: str = "alex",
         else:
             raise KeyError(f"no linear head {i} in checkpoint")
     return out
+
+
+def load_lpips(path: Optional[str], net: str,
+               device: str | torch.device | None = None,
+               backbone_path: Optional[str] = None, seed: int = 0) -> LPIPS:
+    """``LPIPS(net)`` on ``device`` in eval mode with the weights of the
+    torch checkpoint ``path`` (``load_lpips_params``; the backbone from
+    the torchvision state dict ``backbone_path`` when ``path`` holds only
+    the heads), or with the random weights seeded ``seed`` when ``path``
+    is None.  A caller that falls back to random weights says so itself."""
+    lpips = LPIPS(net=net, device=device, seed=seed)
+    if path:
+        backbone = read_torch_file(backbone_path) if backbone_path else None
+        lpips.load_state_dict(load_lpips_params(
+            read_torch_file(path), net=net, backbone_sd=backbone),
+            strict=True)
+    return lpips.eval()
 
 
 def lpips_pairwise_diversity(lpips: nn.Module,
