@@ -4,10 +4,10 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases; any failure exits nonzero before the result lines are printed.
-They run in the order 1, 2a, 3, 2b, 3b, 4: everything timed by the host
-clock comes before the first use of torch.profiler.
+Everything timed by the host clock comes before the first use of
+torch.profiler (the order is at the end of this list).
 
-  1. card: name and power limit (nvidia-smi); build the CUDA kernel from
+  1. card: name and power limit (nvidia-smi); build the CUDA kernels from
      transeditor_tpu_torch/csrc/ and print the build seconds;
   2a. kernel vs plain: ``fused_blur4`` against ``fused_blur4_plain`` on
      the card at the six shapes of a 256px forward at batches 1, 2, 4 and
@@ -216,9 +216,44 @@ clock comes before the first use of torch.profiler.
      modes, ``cli.edit_eval --id_inception``: file trees, report text and
      finite values.
 
-The phases run in the order 1, 2a, 3, 7a, 8a, 9a, 9b, 10a, 2b, 3b, 4, 5a,
-5b, 6, then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's profile, 9c,
-9d, 9e, 10a's profile and replays, 10b, 10c, 10d, 10e.  The last
+  11. the int8 mode (``ops/quant.py``, ``csrc/conv2d_int8.cu``):
+  11a. ``conv2d_int8`` against ``conv2d_int8_plain`` on the card at the 13
+     quantised convs of a 256px forward at batch 2 and at odd cases (C =
+     20 and 6, H odd, batch 1, the stride-2 pad-0 downsample, a 1x1
+     kernel), with int32, float32 and bfloat16 out: bit-equal
+     (``torch.equal``; integer sums are exact);
+  11b. per main-path shape at batch 64, bf16 out: bit-equal again, the
+     kernel's device time (CUDA graph replay), the plain float64
+     version's time and, as a yardstick of another function, cuDNN's bf16
+     ``F.conv2d`` / ``F.conv_transpose2d`` of the same shape, beside the
+     bound (useful MACs at 1,979 TOP/s, bytes at 3.35 TB/s);
+  11c. the int8 main path (counted): the full-width 256px
+     ``ModelConfig(dtype="bfloat16", quantize="int8")`` with seeded random
+     weights (ToRGB at 1/32, as phase 10): 13 ``conv2d_int8`` and 6
+     ``fused_blur4`` launches a forward, all TMA; its PSNR against the
+     unquantised bf16 and f32 images of the same weights; the f32 int8
+     image card vs CPU (PSNR >= 35 dB: isolated rounding flips of the
+     quantised activations); int8 img/s at batches 1 / 8 / 64 beside
+     bf16; an ``InferenceEngine`` on the int8 config answering sample /
+     decode requests, its launches of both kernels counted.
+  11d. (after 3b) device time by kernel for one int8 forward at batch
+     64 (torch.profiler): conv2d_int8, fused_blur4 and the rest.
+  12. the remaining CLIs, in build/smoke_cli, removed at the end: a
+     reference ``.pt`` of the seeded random generator and discriminator;
+     ``cli.export_pt --ckpt`` (a round trip, tensors equal) and
+     ``--state_dir`` of a one-step ``train()`` state (equal to it);
+     ``cli.visualize --sample --swap_z --swap_p --interp --dat_interp``
+     at small counts (a main path, counted: file tree, no one-colour
+     grid, every launch on the TMA path); ``run_similarity``'s heatmaps;
+     ``cli.align --landmarks`` on 8 seeded synthetic 1024px PNGs (file
+     tree, seconds); ``utils.profiling.trace`` around one forward (a
+     non-empty Chrome trace with the kernel's launches).
+
+Phase 1 builds both kernels at once, one ``nvcc`` each.  The phases run
+in the order 1, 2a, 3, 11, 7a, 8a, 9a, 9b, 10a, 2b, 3b, 4, 5a, 5b, 6,
+then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's profile, 9c, 9d,
+9e, 10a's profile and replays, 10b, 10c, 10d, 10e, 12 (11d right after
+3b).  The last
 three lines are the card line, the kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX or of the JAX package.
@@ -3566,12 +3601,499 @@ def metric_cli_phase(fb, dev, setup, model_argv: list) -> dict:
             "launches": {"evaluate": runs["evaluate"]["launches"]}}
 
 
+# ---------------------------------------------------------------- phase 11
+
+INT8_OPS_PER_S = 1.979e15          # H100 SXM int8 dense tensor cores
+# the 13 quantised convs of a 256px forward, in order: (H, I, O, transposed)
+INT8_SHAPES = [(4, 512, 512, False), (4, 512, 512, True),
+               (8, 512, 512, False), (8, 512, 512, True),
+               (16, 512, 512, False), (16, 512, 512, True),
+               (32, 512, 512, False), (32, 512, 512, True),
+               (64, 512, 512, False), (64, 512, 256, True),
+               (128, 256, 256, False), (128, 256, 128, True),
+               (256, 128, 128, False)]
+# odd cases: (x shape, O, k, mode): C = 20 and 6, H odd, batch 1, the
+# stride-2 pad-0 downsample, a 1x1 kernel
+INT8_ODD = [((2, 5, 7, 20), 6, 3, dict(stride=1, padding=1)),
+            ((1, 9, 9, 6), 20, 3, dict(stride=2, padding=0)),
+            ((2, 5, 6, 6), 20, 3, dict(stride=2, transpose=True)),
+            ((1, 7, 7, 512), 512, 3, dict(stride=2, transpose=True)),
+            ((1, 11, 9, 64), 32, 1, dict(stride=1, padding=0)),
+            ((2, 17, 15, 20), 6, 3, dict(stride=2, padding=0))]
+INT8_CARD_CPU_DB = 35.0            # 11c: f32 int8 image, card vs CPU
+
+
+def _int8_mode(transpose: bool) -> dict:
+    return (dict(stride=2, padding=0, transpose=True) if transpose
+            else dict(stride=1, padding=1, transpose=False))
+
+
+def int8_macs(b, h, w, i, o, k, stride=1, padding=0, transpose=False):
+    """Multiply-adds whose input lies inside the image: per axis the
+    (output, tap) pairs that read a real pixel (a transposed conv: every
+    input pixel against every tap)."""
+    from transeditor_tpu_torch.ops.quant import out_size
+
+    def valid(n):
+        if transpose:
+            return n * k
+        return sum(1 for y in range(out_size(n, k, stride, padding, False))
+                   for j in range(k) if 0 <= y * stride - padding + j < n)
+    return b * i * o * valid(h) * valid(w)
+
+
+def _rand_int8(g, shape, dev):
+    return torch.randint(-127, 128, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+def int8_vs_plain(quant, dev) -> dict:
+    """11a: ``conv2d_int8`` against ``conv2d_int8_plain`` on the card at
+    the 13 main-path shapes at batch 2 and the odd cases, int32, float32
+    and bfloat16 out, bit-equal."""
+    g = torch.Generator(dev).manual_seed(0)
+    cases = [((2, h, h, i), o, 3, _int8_mode(t)) for h, i, o, t in INT8_SHAPES]
+    cases += INT8_ODD
+    quant.launches.reset()
+    n = 0
+    for shape, o, k, mode in cases:
+        xq = _rand_int8(g, shape, dev)
+        wq = _rand_int8(g, (o, shape[3], k, k), dev)
+        sx = torch.rand(shape[0], generator=g, device=dev) * 1e-2
+        sw = torch.rand(o, generator=g, device=dev) * 1e-2
+        acc = quant.conv2d_int8_plain(xq, wq, **mode)
+        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            got = quant.conv2d_int8(xq, wq, sx=sx, sw=sw, out_dtype=dtype,
+                                    **mode)
+            n += 1
+            want = acc if dtype == torch.int32 else \
+                quant.dequantize_plain(acc, sx, sw, dtype)
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"conv2d_int8 {shape} -> {o} k{k} {mode} {dtype}: not "
+                  f"bit-equal to plain")
+    torch.cuda.synchronize()
+    check(quant.launches.value == n, f"int8 launches {quant.launches.by_path}"
+                                     f", not {n}")
+    print(f"conv2d_int8 vs plain: {len(cases)} cases (13 main-path shapes "
+          f"at batch 2, {len(INT8_ODD)} odd) x int32 / f32 / bf16 out: "
+          f"bit-equal (torch.equal); launches by mode "
+          f"{quant.launches.by_path}", flush=True)
+    return {"cases": len(cases), "launches": n, "bit_equal": True}
+
+
+def int8_kernel_times(quant, dev) -> list:
+    """11b: per main-path shape at TIME_BATCH, bf16 out: the kernel's
+    device time (CUDA graph replay of launches on packed operands),
+    bit-equal to plain at this batch too; the plain float64 version; and,
+    as a yardstick of another function, cuDNN's bf16 conv of the same
+    shape; beside the bound."""
+    g = torch.Generator(dev).manual_seed(1)
+    rows = []
+    for h, i, o, t in INT8_SHAPES:
+        b, mode = TIME_BATCH, _int8_mode(t)
+        xq = _rand_int8(g, (b, h, h, i), dev)
+        wq = _rand_int8(g, (o, i, 3, 3), dev)
+        sx = torch.rand(b, generator=g, device=dev) * 1e-2
+        sw = torch.rand(o, generator=g, device=dev) * 1e-2
+        plan, x, w = quant.prepare(xq, wq, out_dtype=torch.bfloat16, **mode)
+        got = quant.launch(plan, x, w, sx, sw)
+        want = quant.dequantize_plain(quant.conv2d_int8_plain(xq, wq, **mode),
+                                      sx, sw, torch.bfloat16)
+        check(torch.equal(got, want), f"conv2d_int8 b{b} {h}x{h} {i}->{o} "
+                                      f"{mode}: not bit-equal to plain")
+        del got, want
+        ms = device_ms(lambda: quant.launch(plan, x, w, sx, sw))
+        plain = time_ms(lambda: quant.conv2d_int8_plain(xq, wq, **mode),
+                        reps=2, warm=1)
+        xb = torch.randn((b, i, h, h), generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        if t:
+            wb = torch.randn((i, o, 3, 3), generator=g, device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            conv = device_ms(lambda: F.conv_transpose2d(xb, wb, stride=2))
+        else:
+            wb = torch.randn((o, i, 3, 3), generator=g, device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            conv = device_ms(lambda: F.conv2d(xb, wb, padding=1))
+        macs = int8_macs(b, h, h, i, o, 3, **mode)
+        ho = quant.out_size(h, 3, **mode)
+        nbytes = b * h * h * i + o * 9 * i + b * ho * ho * o * 2 + 4 * (b + o)
+        t_ops, t_bytes = 2 * macs / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        rows_t = {"ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3}
+        rows.append({"in": [b, h, h, i], "out_ch": o, "transposed": t,
+                     "ms": ms, "plain_ms": plain, "cudnn_bf16_ms": conv,
+                     "bound_ms": bound, "share_of_bound": bound / ms,
+                     "gmac": macs / 1e9, "tops": 2 * macs / ms / 1e9,
+                     "bytes": nbytes, **rows_t,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"})
+        print(f"  conv2d_int8 bf16-out {'transposed' if t else 'stride 1'} "
+              f"{[b, h, h, i]} -> {o}: device {ms:.4f} ms (graph replay), "
+              f"{2 * macs / ms / 1e9:.1f} TOP/s; plain f64 {plain:.2f} ms; "
+              f"cuDNN bf16 (yardstick, not the same function) {conv:.4f} "
+              f"ms; bound {bound:.4f} ms ({macs / 1e9:.2f} GMAC at 1,979 "
+              f"TOP/s, {nbytes / 1e6:.1f} MB), {bound / ms:.1%} of it",
+              flush=True)
+        del xq, wq, x, w, xb, wb
+        torch.cuda.empty_cache()
+    s = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
+                                              "cudnn_bf16_ms", "bound_ms")}
+    print(f"conv2d_int8 at batch {TIME_BATCH}, 13 shapes summed: kernel "
+          f"{s['ms']:.3f} ms, bound {s['bound_ms']:.3f} ms "
+          f"({s['bound_ms'] / s['ms']:.1%}), plain f64 {s['plain_ms']:.1f} "
+          f"ms, cuDNN bf16 yardstick {s['cudnn_bf16_ms']:.3f} ms",
+          flush=True)
+    return rows
+
+
+def _psnr_pm1(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = (a.double() - b.double()).pow(2).mean().item()
+    return float("inf") if mse == 0 else 10 * np.log10(4.0 / mse)
+
+
+def int8_generator_phase(fb, quant, dev, card: str, **cfg_kw) -> dict:
+    """11c (the int8 main path, counted): the full-width 256px
+    ``ModelConfig(dtype="bfloat16", quantize="int8")`` with seeded random
+    weights, ToRGB weights at TO_RGB_GAIN; ``cfg_kw`` narrows it for a
+    CPU rehearsal."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.serve import InferenceEngine
+
+    cfg8 = ModelConfig(dtype="bfloat16", quantize="int8", **cfg_kw)
+    ups, dim = cfg8.log_size - 2, cfg8.style_dim
+    n_conv = 1 + 2 * ups
+    g8 = Generator(cfg8, device=dev, seed=0).eval()
+    with torch.no_grad():
+        for to_rgb in (g8.to_rgb1, *g8.to_rgbs):
+            to_rgb.conv.weight.mul_(TO_RGB_GAIN)
+    sd = g8.state_dict()
+
+    def twin(**kw):
+        m = Generator(ModelConfig(**cfg_kw, **kw), device=dev, seed=1)
+        m.load_state_dict(sd, strict=True)
+        return m.eval()
+    g16, g32 = twin(dtype="bfloat16"), twin()
+
+    z, p = (t.to(dev) for t in codes(8, dim))
+    with torch.inference_mode():
+        g8(z, p)
+        torch.cuda.synchronize()
+        quant.launches.reset()
+        fb.launches.reset()               # the main path starts here
+        img8 = g8(z, p).image
+        torch.cuda.synchronize()
+        fwd = {"conv2d_int8": quant.launches.by_path,
+               "fused_blur4": fb.launches.by_path}   # ... and ends here
+        img16, img32 = g16(z, p).image, g32(z, p).image
+    check(fwd["conv2d_int8"] == {"stride1": 1 + ups, "transposed": ups},
+          f"int8 forward launched conv2d_int8 {fwd['conv2d_int8']}, not "
+          f"{n_conv}")
+    check(fwd["fused_blur4"] == {"tma": ups},
+          f"int8 forward launched fused_blur4 {fwd['fused_blur4']}")
+    check(img8.dtype == torch.bfloat16 and bool(
+        torch.isfinite(img8.float()).all()), "int8 image not finite bf16")
+    psnr16 = _psnr_pm1(img8.float(), img16.float())
+    psnr32 = _psnr_pm1(img8.float(), img32)
+    print(f"int8 generator bf16 batch 8: image {tuple(img8.shape)} finite; "
+          f"launches per forward conv2d_int8 {fwd['conv2d_int8']}, "
+          f"fused_blur4 {fwd['fused_blur4']}; PSNR vs unquantised bf16 "
+          f"{psnr16:.2f} dB, vs f32 {psnr32:.2f} dB", flush=True)
+
+    # f32 int8, card vs CPU on the same weights and codes
+    z2, p2 = codes(2, dim, seed=1)
+    cfg8_32 = ModelConfig(quantize="int8", **cfg_kw)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        m = Generator(cfg8_32, device=d, seed=1)
+        m.load_state_dict(sd, strict=True)
+        with torch.inference_mode():
+            out[d.type] = m(z2.to(d), p2.to(d)).image.float().cpu()
+        del m
+    diff = (out[dev.type] - out["cpu"]).abs()
+    card_cpu = _psnr_pm1(out[dev.type], out["cpu"])
+    check(card_cpu >= INT8_CARD_CPU_DB, f"f32 int8 card vs CPU "
+                                        f"{card_cpu:.2f} dB")
+    print(f"int8 generator f32 batch 2, card vs CPU: PSNR {card_cpu:.2f} dB "
+          f"(limit {INT8_CARD_CPU_DB} dB: the mapping and attention "
+          f"matmuls differ in their last bits, and an activation within that "
+          f"of a rounding boundary quantises to the next int8 step), max "
+          f"abs {diff.max().item():.3e}, mean {diff.mean().item():.3e}, "
+          f"{(diff > 1e-3).float().mean().item():.2%} of values beyond "
+          f"1e-3", flush=True)
+
+    rates = {"int8": {}, "bf16": {}}
+    with torch.inference_mode():
+        for b in (1, 8, 64):
+            zb, pb = (t.to(dev) for t in codes(b, dim, seed=2))
+            for name, m in (("bf16", g16), ("int8", g8)):
+                ms = time_ms(lambda: m(zb, pb), reps=10 if b < 64 else 5,
+                             warm=2)
+                rates[name][b] = b / (ms / 1e3)
+            print(f"int8 vs bf16 {cfg8.size}px batch {b}: int8 "
+                  f"{rates['int8'][b]:.1f} img/s, bf16 "
+                  f"{rates['bf16'][b]:.1f} img/s on {card}", flush=True)
+    del g16, g32
+    torch.cuda.empty_cache()
+
+    eng = InferenceEngine(cfg8, sd, seed=0, device=dev)
+    eng.warmup(4)
+    rng = np.random.RandomState(3)
+    zs = rng.randn(2, 16, dim).astype(np.float32)
+    ps = rng.randn(2, 16, dim).astype(np.float32)
+    torch.cuda.synchronize()
+    quant.launches.reset()
+    fb.launches.reset()                   # the main path starts here
+    s1, _, _ = eng.sample(1)
+    s3, _, _ = eng.sample(3)
+    dec = eng.decode(zs, ps)
+    torch.cuda.synchronize()
+    served = {"conv2d_int8": quant.launches.by_path,
+              "fused_blur4": fb.launches.by_path}    # ... and ends here
+    for name, a, n in (("sample(1)", s1, 1), ("sample(3)", s3, 3),
+                       ("decode", dec, 2)):
+        check(a.dtype == np.uint8 and a.shape == (n, cfg8.size, cfg8.size, 3),
+              f"int8 engine {name}: {a.dtype} {a.shape}")
+    n8 = sum(served["conv2d_int8"].values())
+    check(n8 > 0 and n8 % n_conv == 0, f"int8 engine conv2d_int8 {served}")
+    check(list(served["fused_blur4"]) == ["tma"]
+          and served["fused_blur4"]["tma"] == n8 // n_conv * ups,
+          f"int8 engine fused_blur4 {served}")
+    print(f"int8 engine: sample(1) {s1.shape}, sample(3) {s3.shape}, decode "
+          f"{dec.shape}; launches conv2d_int8 {served['conv2d_int8']}, "
+          f"fused_blur4 {served['fused_blur4']}", flush=True)
+    return {"launches_per_forward": fwd, "served_launches": served,
+            "psnr_vs_bf16": psnr16, "psnr_vs_f32": psnr32,
+            "card_vs_cpu_psnr": card_cpu,
+            "card_vs_cpu_max_abs": diff.max().item(), "img_per_s": rates}
+
+
+def profile_int8_forward(dev, batch: int = TIME_BATCH, top: int = 8,
+                         **cfg_kw) -> dict:
+    """11d: device time by kernel for one int8 bf16 forward
+    (torch.profiler): busy ms, ``conv2d_int8`` and ``fused_blur4`` ms, and
+    what is left, the activation quantisation's elementwise passes among
+    it.  It runs after the host-clock phases."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.models.generator import Generator
+
+    g8 = Generator(ModelConfig(dtype="bfloat16", quantize="int8", **cfg_kw),
+                   device=dev, seed=0).eval()
+    zb, pb = (t.to(dev) for t in codes(batch, g8.cfg.style_dim, seed=4))
+    with torch.inference_mode():
+        g8(zb, pb)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            g8(zb, pb)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, blur_us, rows = kernel_table(prof, top)
+    conv_us = sum(_dev_us(e) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and "conv2d_int8" in e.key)
+    print(f"profile int8 bf16 batch {batch}: device busy "
+          f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+          f"({busy_us / wall_us:.1%}); conv2d_int8 {conv_us / 1e3:.3f} ms, "
+          f"fused_blur4 {blur_us / 1e3:.3f} ms, the rest "
+          f"{(busy_us - conv_us - blur_us) / 1e3:.3f} ms", flush=True)
+    for r in rows:
+        print(f"  {r['ms']:9.3f} ms  x{r['calls']:<4d} {r['name']}",
+              flush=True)
+    del g8
+    torch.cuda.empty_cache()
+    return {"batch": batch, "busy_ms": busy_us / 1e3,
+            "wall_ms": wall_us / 1e3, "conv2d_int8_ms": conv_us / 1e3,
+            "fused_blur4_ms": blur_us / 1e3, "top": rows}
+
+
+# ---------------------------------------------------------------- phase 12
+
+N_ALIGN_IMAGES = 8                  # 12: cli.align, 1024px sources
+
+
+def synthetic_faces(n: int, size: int, seed: int = 0):
+    """``n`` smooth seeded images and 68-point landmarks of a face (eyes,
+    mouth corners) jittered about the image's middle."""
+    rng = np.random.RandomState(seed)
+    imgs = smooth_images(n, size, seed)
+    lms = []
+    for _ in range(n):
+        c = size / 2 + rng.uniform(-0.05, 0.05, 2) * size
+        eye, mouth = 0.12 * size, 0.2 * size
+        lm = np.zeros((68, 2))
+        lm[36:42] = c + [-eye, -0.05 * size] + rng.randn(2)
+        lm[42:48] = c + [eye, -0.05 * size] + rng.randn(2)
+        lm[48] = c + [-0.6 * eye, mouth] + rng.randn(2)
+        lm[54] = c + [0.6 * eye, mouth] + rng.randn(2)
+        lms.append(lm)
+    return imgs, lms
+
+
+def _tree(root: pathlib.Path) -> list:
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                  if p.is_file())
+
+
+def remaining_cli_phase(fb, dev, root: pathlib.Path, model_argv: list,
+                        **cfg_kw) -> dict:
+    """12: ``cli.export_pt`` (a reference ``.pt`` round trip; a one-step
+    ``train()`` state), ``cli.visualize`` (a main path, counted),
+    ``run_similarity``, ``cli.align`` and ``utils.profiling.trace``, in
+    ``root``.  ``cfg_kw`` / ``model_argv`` narrow the model for a CPU
+    rehearsal."""
+    from transeditor_tpu_torch.cli import align as align_cli
+    from transeditor_tpu_torch.cli import export_pt, visualize
+    from transeditor_tpu_torch.config import ModelConfig, TrainConfig
+    from transeditor_tpu_torch.models.discriminator import Discriminator
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.train.gan import init_state
+    from transeditor_tpu_torch.train.loop import train
+    from transeditor_tpu_torch.utils import profiling
+    from transeditor_tpu_torch.utils.image import save_png
+
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    cfg = ModelConfig(**cfg_kw)
+    g = Generator(cfg, device=dev, seed=0).eval()
+    with torch.no_grad():
+        for to_rgb in (g.to_rgb1, *g.to_rgbs):
+            to_rgb.conv.weight.mul_(TO_RGB_GAIN)
+    d = Discriminator(cfg, device=dev, seed=1)
+    ref = {"g": {k: v.cpu() for k, v in g.state_dict().items()},
+           "d": {k: v.cpu() for k, v in d.state_dict().items()}}
+    ref["g_ema"] = ref["g"]
+    torch.save(ref, root / "ref.pt")
+    del d
+
+    def equal(bundle, want):
+        return list(bundle) == list(want) and all(
+            set(bundle[k]) == set(want[k]) and all(
+                torch.equal(bundle[k][n], t.cpu())
+                for n, t in want[k].items()) for k in want)
+
+    t0 = time.time()
+    _quiet(export_pt.main, ["--ckpt", str(root / "ref.pt"), "--out",
+                            str(root / "round_trip.pt")] + model_argv)
+    rt = torch.load(root / "round_trip.pt", map_location="cpu",
+                    weights_only=True)
+    check(equal(rt, {k: ref[k] for k in ("g", "d", "g_ema")}),
+          "export_pt --ckpt round trip differs from its source")
+    out["export_ckpt_s"] = time.time() - t0
+
+    tcfg = TrainConfig(batch_size=4, sample_every=1000, checkpoint_every=1)
+    state = init_state(cfg, tcfg, seed=2, device=dev)
+    state = train(cfg, tcfg, iter(synthetic_batches(1, 4, cfg.size)),
+                  out_dir=str(root), exp_name="train", state=state,
+                  device=dev, max_steps=1)
+    t0 = time.time()
+    _quiet(export_pt.main, ["--state_dir", str(root / "train" / "checkpoint"),
+                            "--out", str(root / "state.pt")])
+    exported = torch.load(root / "state.pt", map_location="cpu",
+                          weights_only=True)
+    check(equal(exported, {"g": state.g.state_dict(),
+                           "d": state.d.state_dict(),
+                           "g_ema": state.g_ema.state_dict()}),
+          "export_pt --state_dir differs from the train() state")
+    out["export_state_s"] = time.time() - t0
+    del state
+    torch.cuda.empty_cache()
+    print(f"cli.export_pt: --ckpt round trip {out['export_ckpt_s']:.2f} s, "
+          f"tensors equal; --state_dir of a one-step train() state "
+          f"{out['export_state_s']:.2f} s, equal to the state", flush=True)
+
+    vis_dir = root / "visual"
+    argv = ["--ckpt", str(root / "ref.pt"), "--out", str(vis_dir),
+            "--sample", "--swap_z", "--swap_p", "--interp", "--dat_interp",
+            "--n_sample", "4", "--loop_num", "2", "--interp_num", "1"]
+    torch.cuda.synchronize()
+    fb.launches.reset()                     # the main path starts here
+    t0 = time.time()
+    _quiet(visualize.main, argv + model_argv + ["--device", dev.type])
+    torch.cuda.synchronize()
+    out["visualize_s"] = time.time() - t0
+    counts = fb.launches.by_role_path      # ... and ends here
+    want = ["0.png", "1.png", "swap_p.png", "swap_z.png"]
+    want += [f"interp_many/{s}/interp_{s}_0.png"
+             for s in ("z", "z+", "w", "p", "p+")]
+    want += [f"interp_dat/{s}/interp_{s}_0.png" for s in ("z", "z+", "p", "p+")]
+    check(_tree(vis_dir) == sorted(want), f"visualize tree {_tree(vis_dir)}")
+    from transeditor_tpu_torch.utils.image import load_png
+    for name in want:
+        img = load_png(str(vis_dir / name))
+        check(img.std() > 0, f"visualize {name} is one colour")
+    n = sum(counts.get("forward", {}).values())
+    check(list(counts) == ["forward"] and list(counts["forward"]) == ["tma"]
+          and n > 0 and n % (cfg.log_size - 2) == 0,
+          f"visualize fused_blur4 launches {counts}")
+    out["visualize_launches"] = counts
+    print(f"cli.visualize --sample --swap_z --swap_p --interp --dat_interp: "
+          f"{len(want)} grids in {out['visualize_s']:.2f} s; fused_blur4 "
+          f"launches {counts}", flush=True)
+
+    g16 = Generator(ModelConfig(dtype="bfloat16", **cfg_kw), device=dev,
+                    seed=3)
+    g16.load_state_dict(g.state_dict(), strict=True)
+    visualize.run_similarity(visualize.Sampler(g16), str(root / "sim"))
+    sims = _tree(root / "sim")
+    check(len(sims) > 0 and all(load_png(str(root / "sim" / s)).shape
+                                == (256, 256, 3) for s in sims),
+          f"similarity heatmaps {sims}")
+    print(f"run_similarity: {len(sims)} heatmaps (blocks x heads) of 256 x "
+          f"256", flush=True)
+
+    raw, aligned = root / "raw", root / "aligned"
+    raw.mkdir()
+    imgs, lms = synthetic_faces(N_ALIGN_IMAGES, 1024, seed=5)
+    names = [f"{i:02d}.png" for i in range(N_ALIGN_IMAGES)]
+    for name, img in zip(names, imgs):
+        save_png(str(raw / name), img)
+    np.savez(root / "lm.npz", **dict(zip(names, lms)))
+    t0 = time.time()
+    _quiet(align_cli.main, ["--root_path", str(raw), "--out_path",
+                            str(aligned), "--landmarks", str(root / "lm.npz"),
+                            "--output_size", str(cfg.size)])
+    out["align_s"] = time.time() - t0
+    check(_tree(aligned) == names, f"align tree {_tree(aligned)}")
+    for name in names:
+        a = load_png(str(aligned / name))
+        check(a.shape == (cfg.size, cfg.size, 3) and a.std() > 0,
+              f"aligned {name}: {a.shape}")
+    print(f"cli.align --landmarks: {N_ALIGN_IMAGES} images of 1024px -> "
+          f"{cfg.size}px in {out['align_s']:.2f} s "
+          f"({out['align_s'] / N_ALIGN_IMAGES * 1e3:.0f} ms an image, host)",
+          flush=True)
+
+    z, p = (t.to(dev) for t in codes(2, cfg.style_dim, seed=6))
+    with profiling.trace(str(root / "trace")):
+        with torch.inference_mode():
+            g16(z, p)
+            torch.cuda.synchronize()
+    trace = root / "trace" / profiling.TRACE_FILE
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(trace.stat().st_size > 0 and (dev.type != "cuda" or any(
+        "fused_blur4" in e.get("name", "") for e in kernels)),
+        f"trace {trace}: {len(events)} events, {len(kernels)} kernels")
+    out["trace_bytes"] = trace.stat().st_size
+    out["trace_kernels"] = len(kernels)
+    print(f"utils.profiling.trace: one forward, {trace.stat().st_size} bytes, "
+          f"{len(events)} events, {len(kernels)} kernel events", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from transeditor_tpu_torch.ops import cuda_build
     from transeditor_tpu_torch.ops import fused_blur as fb
+    from transeditor_tpu_torch.ops import quant
 
     dev = torch.device("cuda")
     started = time.time()
@@ -3579,21 +4101,40 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    def timed_build(module):
+        t0 = time.time()
+        module.build()
+        return time.time() - t0
+
     t0 = time.time()
-    fb.build()
-    print(f"built {cuda_build.library_path('fused_blur4').name} in "
-          f"{time.time() - t0:.1f} s", flush=True)
-    log = cuda_build.library_path("fused_blur4").with_suffix(".so.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+    kernels = {"fused_blur4": fb, "conv2d_int8": quant}
+    with ThreadPoolExecutor(len(kernels)) as ex:      # one nvcc each
+        built = {name: ex.submit(timed_build, m)
+                 for name, m in kernels.items()}
+        built = {name: f.result() for name, f in built.items()}
+    for name, s in built.items():
+        print(f"built {cuda_build.library_path(name).name} in {s:.1f} s",
+              flush=True)
+        log = cuda_build.library_path(name).with_suffix(".so.log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas: {line.strip()}", flush=True)
+    print(f"both kernels built in parallel in {time.time() - t0:.1f} s",
+          flush=True)
 
     errs = kernel_vs_plain(fb, dev)
     # host-clock measurements first: once torch.profiler has run, the
     # process keeps paying for its tracing on every launch
     host_us = wrapper_host_us(fb, dev)
     g, gen = generator_phase(fb, dev, card)
+    t11 = time.time()
+    int8 = {"vs_plain": int8_vs_plain(quant, dev),
+            "shapes": int8_kernel_times(quant, dev),
+            "generator": int8_generator_phase(fb, quant, dev, card)}
+    torch.cuda.empty_cache()
+    int8["phase_s"] = time.time() - t11
+    print(f"phase 11: {int8['phase_s']:.1f} s", flush=True)
     t7 = time.time()
     projected = projector_phase(fb, dev, card)
     torch.cuda.empty_cache()
@@ -3623,6 +4164,7 @@ def main() -> int:
     metrics["phase_s"] = time.time() - t10
     rows = kernel_times(fb, dev)
     gen["profile"] = [profile_forward(g, dev, b) for b in (1, 64)]
+    int8["profile"] = profile_int8_forward(dev)
     paths = serve_phase(fb, dev, g)
     del g
     torch.cuda.empty_cache()
@@ -3709,6 +4251,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     metrics["phase_s"] += time.time() - t10
     print(f"phase 10: {metrics['phase_s']:.1f} s", flush=True)
+    t12 = time.time()
+    cli_root = pathlib.Path(__file__).resolve().parent / "build" / \
+        "smoke_cli"
+    shutil.rmtree(cli_root, ignore_errors=True)
+    try:
+        rest = remaining_cli_phase(fb, dev, cli_root, [])
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rest["phase_s"] = time.time() - t12
+    print(f"phase 12: {rest['phase_s']:.1f} s", flush=True)
     metric_launches = {
         k: metrics[k]["launches"] for k in ("fid", "prdc", "ppl",
                                             "diversity")}
@@ -3739,7 +4292,11 @@ def main() -> int:
         + sum(total(c) for c in coached["launches"].values())
         + sum(total(c) for c in coached["cli"]["launches"].values())
         + sum(total(c) for c in edit_launches.values())
-        + sum(total(c) for c in metric_launches.values()),
+        + sum(total(c) for c in metric_launches.values())
+        + sum(int8["generator"]["launches_per_forward"]["fused_blur4"]
+              .values())
+        + sum(int8["generator"]["served_launches"]["fused_blur4"].values())
+        + total(rest["visualize_launches"]),
         "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
         "cli_train_launches": cli["train"]["launches"],
@@ -3772,6 +4329,13 @@ def main() -> int:
         # one FID batch decode's launches replayed through the plain
         # version (bf16 within 2 ulps, f32 within 1e-5 of the largest)
         "metric_launch_errors": metrics["kernel_vs_plain"],
+        # phase 11c, each from 0: one int8 forward, the int8 engine's
+        # requests; phase 12: cli.visualize
+        "int8_launches": {
+            "forward": int8["generator"]["launches_per_forward"][
+                "fused_blur4"],
+            "engine": int8["generator"]["served_launches"]["fused_blur4"]},
+        "visualize_launches": rest["visualize_launches"],
         "launches_per_train_step": {k: v["launches"]
                                     for k, v in train_counts.items()},
         "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
@@ -3822,10 +4386,44 @@ def main() -> int:
     print(json.dumps({"coach": coached}), flush=True)
     print(json.dumps({"edit": edited}), flush=True)
     print(json.dumps({"metrics": metrics}), flush=True)
+    print(json.dumps({"int8": int8}), flush=True)
+    print(json.dumps({"remaining_cli": rest}), flush=True)
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s",
           flush=True)
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    rows8 = int8["shapes"]
+    gen8 = int8["generator"]
+    int8_kernel = {
+        "name": "conv2d_int8", "route": "cuda",
+        "source": "transeditor_tpu_torch/csrc/conv2d_int8.cu",
+        # an XLA convolution in the JAX package, no Pallas predecessor
+        "replaces": "transeditor_tpu/ops/quant.py:70",
+        # the int8 main paths, each counted from 0: one forward (11c) and
+        # the int8 engine's requests (11c)
+        "launches": sum(gen8["launches_per_forward"]["conv2d_int8"].values())
+        + sum(gen8["served_launches"]["conv2d_int8"].values()),
+        "launches_by_path": {"forward": gen8["launches_per_forward"][
+            "conv2d_int8"], "engine": gen8["served_launches"]["conv2d_int8"]},
+        # bit-equal to the plain version in every case (11a, 11b)
+        "max_abs_err": 0.0,
+        # device time per launch by CUDA graph replay, bf16 out, batch 64,
+        # the 13 main-path shapes summed
+        "ms": sum(r["ms"] for r in rows8),
+        "plain_ms": sum(r["plain_ms"] for r in rows8),
+        "bound_ms": sum(r["bound_ms"] for r in rows8),
+        "share_of_bound": sum(r["bound_ms"] for r in rows8)
+        / sum(r["ms"] for r in rows8),
+        # 11 of the 13 shapes, and the sum, are bound by operations
+        "bound_by": "operations" if sum(r["ops_ms"] for r in rows8)
+        >= sum(r["bytes_ms"] for r in rows8) else "bytes",
+        # no PyTorch call computes an int8 convolution on CUDA; cuDNN's
+        # bf16 conv of the same shape is a yardstick of another function
+        "library_ms": None,
+        "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in rows8),
+        "timed": f"bf16 out, batch {TIME_BATCH}, 13 main-path shapes summed",
+        "shapes": rows8,
+    }
+    print(json.dumps({"kernels": [kernel, int8_kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

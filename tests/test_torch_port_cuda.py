@@ -659,3 +659,57 @@ def test_fid_batch_launches_replayed_through_plain(dev, monkeypatch):
                                             act).float()
         err = (y.float() - want).abs()
         assert bool((err <= 2 * _bf16_ulp(want) + 1e-5).all())
+
+
+# ------------------------------------------------------------ conv2d_int8
+
+INT8_CASES = [((2, 8, 8, 512), 512, 3, dict(stride=1, padding=1)),
+              ((2, 8, 8, 512), 512, 3, dict(stride=2, transpose=True)),
+              ((2, 64, 64, 512), 256, 3, dict(stride=2, transpose=True)),
+              ((1, 9, 7, 20), 6, 3, dict(stride=2, padding=0)),
+              ((2, 5, 6, 6), 20, 3, dict(stride=2, transpose=True)),
+              ((1, 11, 9, 64), 32, 1, dict(stride=1, padding=0))]
+
+
+@pytest.mark.parametrize("shape,out_ch,k,mode", INT8_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32,
+                                       torch.bfloat16])
+def test_conv2d_int8_bit_equal_to_plain(dev, shape, out_ch, k, mode,
+                                        out_dtype):
+    """Integer sums are exact: the kernel's output, int32 or dequantised,
+    equals the plain version's bit for bit."""
+    from transeditor_tpu_torch.ops import quant
+
+    g = torch.Generator(dev).manual_seed(sum(shape) + out_ch)
+    xq = torch.randint(-127, 128, shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (out_ch, shape[3], k, k), generator=g,
+                       device=dev, dtype=torch.int8)
+    sx = torch.rand(shape[0], generator=g, device=dev) * 1e-2
+    sw = torch.rand(out_ch, generator=g, device=dev) * 1e-2
+    before = quant.launches.value
+    got = quant.conv2d_int8(xq, wq, sx=sx, sw=sw, out_dtype=out_dtype,
+                            **mode)
+    torch.cuda.synchronize()
+    assert quant.launches.value == before + 1
+    acc = quant.conv2d_int8_plain(xq, wq, **mode)
+    want = acc if out_dtype == torch.int32 else \
+        quant.dequantize_plain(acc, sx, sw, out_dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_conv2d_int8_wrapper_refuses(dev):
+    from transeditor_tpu_torch.ops import quant
+
+    xq = torch.zeros((1, 4, 4, 16), dtype=torch.int8, device=dev)
+    wq = torch.zeros((8, 16, 3, 3), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="cpu"):
+        quant.conv2d_int8(xq, wq.cpu(), padding=1)
+    with pytest.raises(TypeError):
+        quant.conv2d_int8(xq.float(), wq, padding=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.conv2d_int8(xq.transpose(1, 2), wq, padding=1)
+    with pytest.raises(ValueError, match="sx"):
+        quant.conv2d_int8(xq, wq, padding=1, sx=torch.ones(1),
+                          sw=torch.ones(8, device=dev),
+                          out_dtype=torch.float32)

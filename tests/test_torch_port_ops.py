@@ -148,10 +148,20 @@ def test_equal_conv2d_matches_jax(stride, padding):
 
 
 def test_int8_not_ported():
-    x = torch.zeros(1, 4, 4, 2)
-    w = torch.zeros(3, 2, 3, 3)
-    with pytest.raises(NotImplementedError):
-        modconv.modulated_conv2d(x, w, torch.ones(1, 2), quantize="int8")
+    """The int8 mode is ported now (ops/quant.py): quantize="int8" no
+    longer raises, and the modulated conv runs through quantized_conv
+    (held to JAX in tests/test_torch_port_quant.py)."""
+    from transeditor_tpu_torch.ops.quant import quantized_conv
+
+    rng = np.random.RandomState(0)
+    x = _t(rng.randn(1, 4, 4, 2))
+    w = _t(rng.randn(3, 2, 3, 3))
+    got = modconv.modulated_conv2d(x, w, torch.ones(1, 2), demodulate=False,
+                                   quantize="int8")
+    want = quantized_conv(x, w * (1.0 / np.sqrt(2 * 9)), torch.float32,
+                          padding=1)
+    assert got.shape == (1, 4, 4, 3)
+    assert torch.equal(got, want)
 
 
 def test_f32_precision_turns_tf32_off():

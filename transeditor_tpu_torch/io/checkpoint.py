@@ -99,13 +99,40 @@ def _checkpoint_path(ckpt_dir: str, step: Optional[int]) -> tuple[str, int]:
     return os.path.join(ckpt_dir, f"{step:06d}.pt"), step
 
 
+def load_train_state_bundle(ckpt_dir: str, step: Optional[int] = None
+                            ) -> tuple[Dict[str, Any], int]:
+    """The whole train-state bundle (CPU tensors) of the latest (or
+    ``step``'s) checkpoint under ``ckpt_dir``, and its step."""
+    path, step = _checkpoint_path(ckpt_dir, step)
+    return torch.load(path, map_location="cpu", weights_only=True), step
+
+
 def load_train_state_generator(ckpt_dir: str, step: Optional[int] = None
                                ) -> tuple[Dict[str, torch.Tensor], int]:
     """The g_ema state dict (CPU tensors) of the latest (or ``step``'s)
     train-state checkpoint under ``ckpt_dir``, and its step."""
-    path, step = _checkpoint_path(ckpt_dir, step)
-    bundle = torch.load(path, map_location="cpu", weights_only=True)
+    bundle, step = load_train_state_bundle(ckpt_dir, step)
     return bundle["g_ema"], step
+
+
+def export_reference_checkpoint(
+        path: str, *, g_ema: Optional[Dict[str, torch.Tensor]] = None,
+        g: Optional[Dict[str, torch.Tensor]] = None,
+        d: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Write a reference-layout ``{'g', 'd', 'g_ema'}`` bundle, each state
+    dict given as CPU tensors, without optimizer
+    states (``transeditor_tpu/io/torch_export.py::
+    export_reference_checkpoint``).  The port's names are the reference
+    keys, so ``Generator(...).load_state_dict(ckpt['g_ema'])`` of the
+    reference code loads it.  Written beside, then renamed."""
+    bundle: Dict[str, Any] = {}
+    for key, sd in (("g", g), ("d", d), ("g_ema", g_ema)):
+        if sd is not None:
+            bundle[key] = {k: v.detach().cpu() for k, v in sd.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(bundle, tmp)
+    os.replace(tmp, path)
 
 
 def restore_train_state(ckpt_dir: str, template: Any,

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from transeditor_tpu_torch.ops.fused_blur import fused_blur4
 from transeditor_tpu_torch.ops.precision import conv_precision
+from transeditor_tpu_torch.ops.quant import quantized_conv
 from transeditor_tpu_torch.ops.resample import blur
 
 
@@ -52,12 +53,6 @@ def _demod(weight32: torch.Tensor, style32: torch.Tensor, scale: float,
     return torch.rsqrt((scale * scale) * ((style32 * style32) @ wsq) + eps)
 
 
-def _no_int8(quantize):
-    if quantize == "int8":
-        raise NotImplementedError(
-            "quantize='int8' is not ported yet (ops/quant.py)")
-
-
 def modulated_conv2d_up_fused(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -79,8 +74,11 @@ def modulated_conv2d_up_fused(
     bias is the same kernel in its adjoint configuration plus a
     recompute of the blur, differentiable again for the path-length
     regulariser.  Under ``no_grad`` / ``inference_mode`` it launches the
-    kernel directly."""
-    _no_int8(quantize)
+    kernel directly.
+
+    ``quantize="int8"`` runs the transposed conv through
+    ``ops/quant.py::quantized_conv`` (the int8 kernel on CUDA); its
+    output goes on to ``fused_blur4`` unchanged."""
     if len(blur_kernel) != 4:
         raise ValueError("the fused up-conv takes a 4-tap blur kernel")
     _, in_ch, kh, kw = weight.shape
@@ -94,7 +92,11 @@ def modulated_conv2d_up_fused(
         demod = _demod(w32, style32, scale, eps).to(dtype)
 
     xs = x * style32.to(dtype)[:, None, None, :]
-    out = _conv(xs, (w32 * scale).to(dtype), stride=2, transpose=True)
+    if quantize == "int8":
+        out = quantized_conv(xs, w32 * scale, dtype, stride=2,
+                             transpose=True)
+    else:
+        out = _conv(xs, (w32 * scale).to(dtype), stride=2, transpose=True)
 
     p = (len(blur_kernel) - 2) - (kh - 1)
     pad = ((p + 1) // 2 + 1, p // 2 + 1)
@@ -125,11 +127,11 @@ def modulated_conv2d(
       upsample / downsample: stride-2 resampling with the StyleGAN2 FIR
         blur placement (the unfused chain; the generator's up-convs use
         ``modulated_conv2d_up_fused``).
+      quantize: "int8" runs each conv through ``ops/quant.py``.
 
     Returns:
       [B, H', W', O].
     """
-    _no_int8(quantize)
     _, in_ch, kh, kw = weight.shape
     scale = 1.0 / math.sqrt(in_ch * kh * kw)
     dtype = x.dtype
@@ -140,11 +142,20 @@ def modulated_conv2d(
     if demodulate:
         demod = _demod(w32, style32, scale, eps).to(dtype)[:, None, None, :]
 
-    w = (w32 * scale).to(dtype)
     xs = x * style32.to(dtype)[:, None, None, :]
+    if quantize == "int8":
+        ws = w32 * scale
+
+        def conv(inp, **kw):
+            return quantized_conv(inp, ws, dtype, **kw)
+    else:
+        w = (w32 * scale).to(dtype)
+
+        def conv(inp, **kw):
+            return _conv(inp, w, **kw)
 
     if upsample:
-        out = _conv(xs, w, stride=2, transpose=True)
+        out = conv(xs, stride=2, transpose=True)
         if demod is not None:
             out = out * demod
         k = len(blur_kernel)
@@ -155,9 +166,9 @@ def modulated_conv2d(
         k = len(blur_kernel)
         p = (k - 2) + (kh - 1)
         pad = ((p + 1) // 2, p // 2)
-        out = _conv(blur(xs, blur_kernel, pad=pad), w, stride=2, padding=0)
+        out = conv(blur(xs, blur_kernel, pad=pad), stride=2, padding=0)
     else:
-        out = _conv(xs, w, padding=kh // 2)
+        out = conv(xs, padding=kh // 2)
     if demod is not None:
         out = out * demod
     return out

@@ -30,10 +30,13 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return np.clip((img + 1.0) * 127.5 + 0.5, 0, 255).astype(np.uint8)
 
 
-def make_grid(imgs: np.ndarray, nrow: int = 8, pad: int = 2) -> np.ndarray:
-    """Tile [N,H,W,3] images in [-1, 1] into one uint8 grid image, ``nrow``
-    images a row (``transeditor_tpu/utils/image.py::make_grid``)."""
-    x = np.clip((np.asarray(imgs, np.float32) + 1.0) / 2.0, 0, 1)
+def make_grid(imgs: np.ndarray, nrow: int = 8, pad: int = 2,
+              normalize_range=(-1.0, 1.0)) -> np.ndarray:
+    """Tile [N,H,W,3] images into one uint8 grid image, ``nrow`` images a
+    row, ``normalize_range`` mapped to [0, 1]
+    (``transeditor_tpu/utils/image.py::make_grid``)."""
+    lo, hi = normalize_range
+    x = np.clip((np.asarray(imgs, np.float32) - lo) / (hi - lo), 0, 1)
     n, h, w, c = x.shape
     rows = math.ceil(n / nrow)
     grid = np.ones((rows * (h + pad) + pad, nrow * (w + pad) + pad, c),
@@ -43,6 +46,24 @@ def make_grid(imgs: np.ndarray, nrow: int = 8, pad: int = 2) -> np.ndarray:
         y0, x0 = pad + r * (h + pad), pad + col * (w + pad)
         grid[y0:y0 + h, x0:x0 + w] = x[i]
     return (grid * 255 + 0.5).astype(np.uint8)
+
+
+def colorize_heatmap(x: np.ndarray, upscale: int = 16) -> np.ndarray:
+    """[H,W] scores -> uint8 RGB heatmap on a three-anchor colormap (dark
+    blue -> green -> yellow), each cell ``upscale`` pixels square (the
+    attention similarity plots, as the JAX package draws them)."""
+    x = np.asarray(x, np.float32)
+    x = (x - x.min()) / max(x.max() - x.min(), 1e-12)
+    anchors = np.asarray([[68, 1, 84], [33, 145, 140], [253, 231, 37]],
+                         np.float32)
+    t = x * 2.0
+    lo = np.clip(np.floor(t).astype(int), 0, 1)
+    frac = (t - lo)[..., None]
+    rgb = anchors[lo] * (1 - frac) + anchors[lo + 1] * frac
+    img = rgb.astype(np.uint8)
+    if upscale > 1:
+        img = np.repeat(np.repeat(img, upscale, 0), upscale, 1)
+    return img
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
