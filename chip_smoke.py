@@ -216,21 +216,29 @@ torch.profiler (the order is at the end of this list).
      modes, ``cli.edit_eval --id_inception``: file trees, report text and
      finite values.
 
-  11. the int8 mode (``ops/quant.py``, ``csrc/conv2d_int8.cu``):
+  11. the int8 mode (``ops/quant.py``; its two kernel paths
+     ``csrc/conv2d_int8_wgmma.cu``, "wgmma", and ``csrc/conv2d_int8.cu``,
+     "general", chosen per geometry by ``quant.plan_conv``):
   11a. ``conv2d_int8`` against ``conv2d_int8_plain`` on the card at the 13
-     quantised convs of a 256px forward at batch 2 and at odd cases (C =
-     20 and 6, H odd, batch 1, the stride-2 pad-0 downsample, a 1x1
-     kernel), with int32, float32 and bfloat16 out: bit-equal
-     (``torch.equal``; integer sums are exact);
-  11b. per main-path shape at batch 64, bf16 out: bit-equal again, the
-     kernel's device time (CUDA graph replay), the plain float64
-     version's time and, as a yardstick of another function, cuDNN's bf16
-     ``F.conv2d`` / ``F.conv_transpose2d`` of the same shape, beside the
-     bound (useful MACs at 1,979 TOP/s, bytes at 3.35 TB/s);
+     quantised convs of a 256px forward at batch 2 and at odd cases, with
+     int32, float32 and bfloat16 out: bit-equal (``torch.equal``; integer
+     sums are exact), each case on the path the plan names for it and
+     printed with it -- on the general path C = 20 and 6, the stride-2
+     pad-0 downsample, a 1x1 kernel; on the wgmma path batch 1 with H
+     odd, Ip 32 from 20 channels, a ragged M and N, a split-K shape;
+  11b. per main-path shape at batch 64, bf16 out: both paths bit-equal
+     again; the wgmma kernel's and the earlier (general-path) kernel's
+     device time (CUDA graph replay), TOP/s and share of the bound
+     (useful MACs at 1,979 TOP/s, bytes at 3.35 TB/s); the plain float64
+     version's time; as yardsticks of other functions, cuDNN's bf16
+     ``F.conv2d`` / ``F.conv_transpose2d`` of the same shape and
+     ``torch._int_mm`` of the same-sized int8 GEMM (per phase, summed);
+     the wrapper's host time per call (host clock over enqueues);
   11c. the int8 main path (counted): the full-width 256px
      ``ModelConfig(dtype="bfloat16", quantize="int8")`` with seeded random
-     weights (ToRGB at 1/32, as phase 10): 13 ``conv2d_int8`` and 6
-     ``fused_blur4`` launches a forward, all TMA; its PSNR against the
+     weights (ToRGB at 1/32, as phase 10): 13 ``conv2d_int8`` launches a
+     forward, all on the wgmma path, and 6 ``fused_blur4`` launches, all
+     TMA; its PSNR against the
      unquantised bf16 and f32 images of the same weights; the f32 int8
      image card vs CPU (PSNR >= 35 dB: isolated rounding flips of the
      quantised activations); int8 img/s at batches 1 / 8 / 64 beside
@@ -249,12 +257,12 @@ torch.profiler (the order is at the end of this list).
      tree, seconds); ``utils.profiling.trace`` around one forward (a
      non-empty Chrome trace with the kernel's launches).
 
-Phase 1 builds both kernels at once, one ``nvcc`` each.  The phases run
-in the order 1, 2a, 3, 11, 7a, 8a, 9a, 9b, 10a, 2b, 3b, 4, 5a, 5b, 6,
-then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's profile, 9c, 9d,
-9e, 10a's profile and replays, 10b, 10c, 10d, 10e, 12 (11d right after
-3b).  The last
-three lines are the card line, the kernels line and
+Phase 1 builds the three kernel libraries at once, one ``nvcc`` each.
+The phases run in the order 1, 2a, 3, 11, 7a, 8a, 9a, 9b, 10a, 2b, 3b,
+4, 5a, 5b, 6, then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's
+profile, 9c, 9d, 9e, 10a's profile and replays, 10b, 10c, 10d, 10e, 12
+(11d right after 3b).  The last three lines are the card line, the
+kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -3612,14 +3620,22 @@ INT8_SHAPES = [(4, 512, 512, False), (4, 512, 512, True),
                (64, 512, 512, False), (64, 512, 256, True),
                (128, 256, 256, False), (128, 256, 128, True),
                (256, 128, 128, False)]
-# odd cases: (x shape, O, k, mode): C = 20 and 6, H odd, batch 1, the
-# stride-2 pad-0 downsample, a 1x1 kernel
-INT8_ODD = [((2, 5, 7, 20), 6, 3, dict(stride=1, padding=1)),
-            ((1, 9, 9, 6), 20, 3, dict(stride=2, padding=0)),
-            ((2, 5, 6, 6), 20, 3, dict(stride=2, transpose=True)),
-            ((1, 7, 7, 512), 512, 3, dict(stride=2, transpose=True)),
-            ((1, 11, 9, 64), 32, 1, dict(stride=1, padding=0)),
-            ((2, 17, 15, 20), 6, 3, dict(stride=2, padding=0))]
+# odd cases: (x shape, O, k, mode, the path the plan must choose): on the
+# general path C = 20 and 6 (O not a multiple of 8), the stride-2 pad-0
+# downsample, a 1x1 kernel; on the wgmma path batch 1 with H odd, Ip 32
+# from 20 channels (a K step mostly TMA's zero fill), a ragged M and N
+# (O = 40), a transposed conv on 20 channels, split-K shapes
+INT8_ODD = [((2, 5, 7, 20), 6, 3, dict(stride=1, padding=1), "general"),
+            ((1, 9, 9, 6), 20, 3, dict(stride=2, padding=0), "general"),
+            ((2, 5, 6, 6), 20, 3, dict(stride=2, transpose=True), "general"),
+            ((1, 7, 7, 512), 512, 3, dict(stride=2, transpose=True),
+             "wgmma"),
+            ((1, 11, 9, 64), 32, 1, dict(stride=1, padding=0), "general"),
+            ((2, 17, 15, 20), 6, 3, dict(stride=2, padding=0), "general"),
+            ((1, 5, 7, 20), 16, 3, dict(stride=1, padding=1), "wgmma"),
+            ((3, 11, 13, 64), 40, 3, dict(stride=1, padding=1), "wgmma"),
+            ((1, 7, 9, 20), 24, 3, dict(stride=2, transpose=True), "wgmma"),
+            ((64, 4, 4, 512), 512, 3, dict(stride=1, padding=1), "wgmma")]
 INT8_CARD_CPU_DB = 35.0            # 11c: f32 int8 image, card vs CPU
 
 
@@ -3647,46 +3663,104 @@ def _rand_int8(g, shape, dev):
                          dtype=torch.int8)
 
 
+def _plan_of(quant, xq, wq, mode, dtype=torch.bfloat16):
+    """The plan ``conv2d_int8`` takes for these operands."""
+    return quant.prepare(xq, wq, out_dtype=dtype,
+                         **{"padding": 0, "transpose": False, **mode})[0]
+
+
 def int8_vs_plain(quant, dev) -> dict:
     """11a: ``conv2d_int8`` against ``conv2d_int8_plain`` on the card at
     the 13 main-path shapes at batch 2 and the odd cases, int32, float32
-    and bfloat16 out, bit-equal."""
+    and bfloat16 out, bit-equal, each on the path its plan names."""
     g = torch.Generator(dev).manual_seed(0)
-    cases = [((2, h, h, i), o, 3, _int8_mode(t)) for h, i, o, t in INT8_SHAPES]
+    cases = [((2, h, h, i), o, 3, _int8_mode(t), "wgmma")
+             for h, i, o, t in INT8_SHAPES]
     cases += INT8_ODD
     quant.launches.reset()
     n = 0
-    for shape, o, k, mode in cases:
+    for shape, o, k, mode, path in cases:
         xq = _rand_int8(g, shape, dev)
         wq = _rand_int8(g, (o, shape[3], k, k), dev)
         sx = torch.rand(shape[0], generator=g, device=dev) * 1e-2
         sw = torch.rand(o, generator=g, device=dev) * 1e-2
+        plan = _plan_of(quant, xq, wq, mode)
+        check(plan.path == path, f"conv2d_int8 {shape} -> {o} k{k} {mode}: "
+                                 f"planned {plan.path}, not {path}")
         acc = quant.conv2d_int8_plain(xq, wq, **mode)
         for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            before = quant.launches.by_path.get(path, 0)
             got = quant.conv2d_int8(xq, wq, sx=sx, sw=sw, out_dtype=dtype,
                                     **mode)
             n += 1
+            check(quant.launches.by_path.get(path, 0) == before + 1,
+                  f"conv2d_int8 {shape} {mode}: not launched on {path}")
             want = acc if dtype == torch.int32 else \
                 quant.dequantize_plain(acc, sx, sw, dtype)
             check(got.dtype == want.dtype and torch.equal(got, want),
-                  f"conv2d_int8 {shape} -> {o} k{k} {mode} {dtype}: not "
-                  f"bit-equal to plain")
+                  f"conv2d_int8 {shape} -> {o} k{k} {mode} {dtype} on the "
+                  f"{path} path: not bit-equal to plain")
+        if (shape, o, k, mode, path) in INT8_ODD:
+            split = f", split {plan.split}" if path == "wgmma" else ""
+            print(f"  conv2d_int8 {list(shape)} -> {o} k{k} {mode}: {path} "
+                  f"path{split}, bit-equal at int32 / f32 / bf16 out",
+                  flush=True)
     torch.cuda.synchronize()
     check(quant.launches.value == n, f"int8 launches {quant.launches.by_path}"
                                      f", not {n}")
     print(f"conv2d_int8 vs plain: {len(cases)} cases (13 main-path shapes "
           f"at batch 2, {len(INT8_ODD)} odd) x int32 / f32 / bf16 out: "
-          f"bit-equal (torch.equal); launches by mode "
-          f"{quant.launches.by_path}", flush=True)
-    return {"cases": len(cases), "launches": n, "bit_equal": True}
+          f"bit-equal (torch.equal); launches by path "
+          f"{quant.launches.by_path}, by mode {quant.launches.by_role}",
+          flush=True)
+    return {"cases": len(cases), "launches": n, "bit_equal": True,
+            "launches_by_path": quant.launches.by_path}
+
+
+def _int_mm_ms(b, h, i, o, mode, dev) -> float:
+    """``torch._int_mm`` of the conv's int8 GEMM sizes, M = output pixels
+    of a phase, K = its taps x I, N = O (per phase, summed): a yardstick
+    of another function, with no gather and no epilogue, that the port
+    never calls."""
+    from transeditor_tpu_torch.ops.quant import out_size, phases
+    ho = out_size(h, 3, mode["stride"], mode.get("padding", 0),
+                  mode["transpose"])
+    total = 0.0
+    for f in phases(ho, ho, 3, 3, mode["transpose"]):
+        m, k = b * f.Hq * f.Wq, f.taps * i
+        a = torch.ones((m, k), dtype=torch.int8, device=dev)
+        bt = torch.ones((o, k), dtype=torch.int8, device=dev).t()
+        total += device_ms(lambda: torch._int_mm(a, bt))
+        del a, bt
+    return total
+
+
+def int8_host_us(quant, xq, wq, sx, sw, mode, reps: int = 50) -> float:
+    """Host time per ``conv2d_int8`` call (packing, plan lookup, tensor
+    maps, launch): a host clock over ``reps`` enqueues, then a
+    synchronize."""
+    def call():
+        quant.conv2d_int8(xq, wq, sx=sx, sw=sw, out_dtype=torch.bfloat16,
+                          **mode)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def int8_kernel_times(quant, dev) -> list:
-    """11b: per main-path shape at TIME_BATCH, bf16 out: the kernel's
-    device time (CUDA graph replay of launches on packed operands),
-    bit-equal to plain at this batch too; the plain float64 version; and,
-    as a yardstick of another function, cuDNN's bf16 conv of the same
-    shape; beside the bound."""
+    """11b: per main-path shape at TIME_BATCH, bf16 out: the wgmma
+    kernel's and the earlier kernel's (the general path's) device time
+    (CUDA graph replay of launches on packed operands), both bit-equal to
+    plain at this batch too; the plain float64 version; as yardsticks of
+    other functions, cuDNN's bf16 conv of the same shape and
+    ``torch._int_mm`` of the same-sized GEMM; the wrapper's host time per
+    call; beside the bound."""
     g = torch.Generator(dev).manual_seed(1)
     rows = []
     for h, i, o, t in INT8_SHAPES:
@@ -3695,16 +3769,28 @@ def int8_kernel_times(quant, dev) -> list:
         wq = _rand_int8(g, (o, i, 3, 3), dev)
         sx = torch.rand(b, generator=g, device=dev) * 1e-2
         sw = torch.rand(o, generator=g, device=dev) * 1e-2
-        plan, x, w = quant.prepare(xq, wq, out_dtype=torch.bfloat16, **mode)
-        got = quant.launch(plan, x, w, sx, sw)
         want = quant.dequantize_plain(quant.conv2d_int8_plain(xq, wq, **mode),
                                       sx, sw, torch.bfloat16)
-        check(torch.equal(got, want), f"conv2d_int8 b{b} {h}x{h} {i}->{o} "
-                                      f"{mode}: not bit-equal to plain")
-        del got, want
-        ms = device_ms(lambda: quant.launch(plan, x, w, sx, sw))
+        dev_ms, plans = {}, {}
+        for path, general in (("wgmma", False), ("general", True)):
+            plan, x, w = quant.prepare(xq, wq, out_dtype=torch.bfloat16,
+                                       general=general, **mode)
+            check(plan.path == path, f"conv2d_int8 b{b} {h}x{h} {i}->{o} "
+                                     f"{mode}: planned {plan.path}")
+            got = quant.launch(plan, x, w, sx, sw)
+            check(torch.equal(got, want), f"conv2d_int8 b{b} {h}x{h} "
+                                          f"{i}->{o} {mode} on the {path} "
+                                          f"path: not bit-equal to plain")
+            del got
+            dev_ms[path] = device_ms(
+                lambda: quant.launch(plan, x, w, sx, sw))
+            plans[path] = plan
+        del want
+        ms = dev_ms["wgmma"]
+        host = int8_host_us(quant, xq, wq, sx, sw, mode)
         plain = time_ms(lambda: quant.conv2d_int8_plain(xq, wq, **mode),
                         reps=2, warm=1)
+        int_mm = _int_mm_ms(b, h, i, o, mode, dev)
         xb = torch.randn((b, i, h, h), generator=g, device=dev).to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         if t:
@@ -3721,29 +3807,52 @@ def int8_kernel_times(quant, dev) -> list:
         t_ops, t_bytes = 2 * macs / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
         rows_t = {"ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3}
+        p = plans["wgmma"]
         rows.append({"in": [b, h, h, i], "out_ch": o, "transposed": t,
-                     "ms": ms, "plain_ms": plain, "cudnn_bf16_ms": conv,
+                     "ms": ms, "earlier_kernel_ms": dev_ms["general"],
+                     "plain_ms": plain, "cudnn_bf16_ms": conv,
+                     "int_mm_ms": int_mm, "host_us": host,
                      "bound_ms": bound, "share_of_bound": bound / ms,
+                     "earlier_share_of_bound": bound / dev_ms["general"],
                      "gmac": macs / 1e9, "tops": 2 * macs / ms / 1e9,
+                     "earlier_tops": 2 * macs / dev_ms["general"] / 1e9,
                      "bytes": nbytes, **rows_t,
+                     "plan": {"tile": [p.tile_m, p.tile_n],
+                              "boxes": p.boxes, "split": p.split,
+                              "items": p.n_items, "grid": p.grid,
+                              "stages": p.stages},
                      "bound_by": "operations" if t_ops >= t_bytes
                      else "bytes"})
         print(f"  conv2d_int8 bf16-out {'transposed' if t else 'stride 1'} "
-              f"{[b, h, h, i]} -> {o}: device {ms:.4f} ms (graph replay), "
-              f"{2 * macs / ms / 1e9:.1f} TOP/s; plain f64 {plain:.2f} ms; "
-              f"cuDNN bf16 (yardstick, not the same function) {conv:.4f} "
-              f"ms; bound {bound:.4f} ms ({macs / 1e9:.2f} GMAC at 1,979 "
-              f"TOP/s, {nbytes / 1e6:.1f} MB), {bound / ms:.1%} of it",
-              flush=True)
-        del xq, wq, x, w, xb, wb
+              f"{[b, h, h, i]} -> {o}: wgmma {ms:.4f} ms "
+              f"({2 * macs / ms / 1e9:.1f} TOP/s, {bound / ms:.1%} of the "
+              f"bound; tile {p.tile_m}x{p.tile_n}, boxes {p.boxes}, split "
+              f"{p.split}, {p.n_items} items on {p.grid} blocks, "
+              f"{p.stages} stages), earlier kernel {dev_ms['general']:.4f} "
+              f"ms ({2 * macs / dev_ms['general'] / 1e9:.1f} TOP/s), both "
+              f"bit-equal (device, graph replay); host {host:.1f} us a "
+              f"call; plain f64 {plain:.2f} ms; yardsticks of other "
+              f"functions: cuDNN bf16 {conv:.4f} ms, torch._int_mm "
+              f"{int_mm:.4f} ms; bound {bound:.4f} ms ({macs / 1e9:.2f} "
+              f"GMAC at 1,979 TOP/s, {nbytes / 1e6:.1f} MB)", flush=True)
+        del xq, wq, xb, wb
         torch.cuda.empty_cache()
-    s = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
-                                              "cudnn_bf16_ms", "bound_ms")}
-    print(f"conv2d_int8 at batch {TIME_BATCH}, 13 shapes summed: kernel "
-          f"{s['ms']:.3f} ms, bound {s['bound_ms']:.3f} ms "
-          f"({s['bound_ms'] / s['ms']:.1%}), plain f64 {s['plain_ms']:.1f} "
-          f"ms, cuDNN bf16 yardstick {s['cudnn_bf16_ms']:.3f} ms",
-          flush=True)
+    s = {k: sum(r[k] for r in rows) for k in (
+        "ms", "earlier_kernel_ms", "plain_ms", "cudnn_bf16_ms", "int_mm_ms",
+        "bound_ms")}
+    print(f"conv2d_int8 at batch {TIME_BATCH}, 13 shapes summed: wgmma "
+          f"kernel {s['ms']:.3f} ms ({s['bound_ms'] / s['ms']:.1%} of the "
+          f"{s['bound_ms']:.3f} ms bound), earlier kernel "
+          f"{s['earlier_kernel_ms']:.3f} ms "
+          f"({s['bound_ms'] / s['earlier_kernel_ms']:.1%}), "
+          f"{s['ms'] / s['earlier_kernel_ms']:.1%} of its time; plain f64 "
+          f"{s['plain_ms']:.1f} ms; yardsticks cuDNN bf16 "
+          f"{s['cudnn_bf16_ms']:.3f} ms, torch._int_mm "
+          f"{s['int_mm_ms']:.3f} ms", flush=True)
+    check(all(r["ms"] < r["earlier_kernel_ms"] for r in rows),
+          "the wgmma kernel is slower than the earlier kernel at "
+          + str([r["in"] for r in rows
+                 if r["ms"] >= r["earlier_kernel_ms"]]))
     return rows
 
 
@@ -3784,12 +3893,16 @@ def int8_generator_phase(fb, quant, dev, card: str, **cfg_kw) -> dict:
         fb.launches.reset()               # the main path starts here
         img8 = g8(z, p).image
         torch.cuda.synchronize()
-        fwd = {"conv2d_int8": quant.launches.by_path,
+        fwd = {"conv2d_int8": quant.launches.by_role,
+               "conv2d_int8_paths": quant.launches.by_path,
                "fused_blur4": fb.launches.by_path}   # ... and ends here
         img16, img32 = g16(z, p).image, g32(z, p).image
     check(fwd["conv2d_int8"] == {"stride1": 1 + ups, "transposed": ups},
           f"int8 forward launched conv2d_int8 {fwd['conv2d_int8']}, not "
           f"{n_conv}")
+    check(fwd["conv2d_int8_paths"] == {"wgmma": n_conv},
+          f"int8 forward's conv2d_int8 paths {fwd['conv2d_int8_paths']}, "
+          f"not {n_conv} on the wgmma path")
     check(fwd["fused_blur4"] == {"tma": ups},
           f"int8 forward launched fused_blur4 {fwd['fused_blur4']}")
     check(img8.dtype == torch.bfloat16 and bool(
@@ -3797,7 +3910,8 @@ def int8_generator_phase(fb, quant, dev, card: str, **cfg_kw) -> dict:
     psnr16 = _psnr_pm1(img8.float(), img16.float())
     psnr32 = _psnr_pm1(img8.float(), img32)
     print(f"int8 generator bf16 batch 8: image {tuple(img8.shape)} finite; "
-          f"launches per forward conv2d_int8 {fwd['conv2d_int8']}, "
+          f"launches per forward conv2d_int8 {fwd['conv2d_int8']} (by "
+          f"path {fwd['conv2d_int8_paths']}), "
           f"fused_blur4 {fwd['fused_blur4']}; PSNR vs unquantised bf16 "
           f"{psnr16:.2f} dB, vs f32 {psnr32:.2f} dB", flush=True)
 
@@ -3849,7 +3963,8 @@ def int8_generator_phase(fb, quant, dev, card: str, **cfg_kw) -> dict:
     s3, _, _ = eng.sample(3)
     dec = eng.decode(zs, ps)
     torch.cuda.synchronize()
-    served = {"conv2d_int8": quant.launches.by_path,
+    served = {"conv2d_int8": quant.launches.by_role,
+              "conv2d_int8_paths": quant.launches.by_path,
               "fused_blur4": fb.launches.by_path}    # ... and ends here
     for name, a, n in (("sample(1)", s1, 1), ("sample(3)", s3, 3),
                        ("decode", dec, 2)):
@@ -3857,11 +3972,14 @@ def int8_generator_phase(fb, quant, dev, card: str, **cfg_kw) -> dict:
               f"int8 engine {name}: {a.dtype} {a.shape}")
     n8 = sum(served["conv2d_int8"].values())
     check(n8 > 0 and n8 % n_conv == 0, f"int8 engine conv2d_int8 {served}")
+    check(served["conv2d_int8_paths"] == {"wgmma": n8},
+          f"int8 engine conv2d_int8 paths {served}")
     check(list(served["fused_blur4"]) == ["tma"]
           and served["fused_blur4"]["tma"] == n8 // n_conv * ups,
           f"int8 engine fused_blur4 {served}")
     print(f"int8 engine: sample(1) {s1.shape}, sample(3) {s3.shape}, decode "
-          f"{dec.shape}; launches conv2d_int8 {served['conv2d_int8']}, "
+          f"{dec.shape}; launches conv2d_int8 {served['conv2d_int8']} (by "
+          f"path {served['conv2d_int8_paths']}), "
           f"fused_blur4 {served['fused_blur4']}", flush=True)
     return {"launches_per_forward": fwd, "served_launches": served,
             "psnr_vs_bf16": psnr16, "psnr_vs_f32": psnr32,
@@ -4101,17 +4219,18 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    def timed_build(module):
+    def timed_build(name):
         t0 = time.time()
-        module.build()
+        cuda_build.compile_library(name)
         return time.time() - t0
 
     t0 = time.time()
-    kernels = {"fused_blur4": fb, "conv2d_int8": quant}
-    with ThreadPoolExecutor(len(kernels)) as ex:      # one nvcc each
-        built = {name: ex.submit(timed_build, m)
-                 for name, m in kernels.items()}
+    libraries = ["fused_blur4", *quant.LIBRARIES]
+    with ThreadPoolExecutor(len(libraries)) as ex:    # one nvcc each
+        built = {name: ex.submit(timed_build, name) for name in libraries}
         built = {name: f.result() for name, f in built.items()}
+    fb.build()
+    quant.build()
     for name, s in built.items():
         print(f"built {cuda_build.library_path(name).name} in {s:.1f} s",
               flush=True)
@@ -4120,7 +4239,8 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas: {line.strip()}", flush=True)
-    print(f"both kernels built in parallel in {time.time() - t0:.1f} s",
+    print(f"{len(libraries)} kernel libraries built in parallel in "
+          f"{time.time() - t0:.1f} s",
           flush=True)
 
     errs = kernel_vs_plain(fb, dev)
@@ -4395,7 +4515,9 @@ def main() -> int:
     gen8 = int8["generator"]
     int8_kernel = {
         "name": "conv2d_int8", "route": "cuda",
-        "source": "transeditor_tpu_torch/csrc/conv2d_int8.cu",
+        "source": "transeditor_tpu_torch/csrc/conv2d_int8_wgmma.cu",
+        # the earlier kernel, kept for what the wgmma path cannot describe
+        "general_path_source": "transeditor_tpu_torch/csrc/conv2d_int8.cu",
         # an XLA convolution in the JAX package, no Pallas predecessor
         "replaces": "transeditor_tpu/ops/quant.py:70",
         # the int8 main paths, each counted from 0: one forward (11c) and
@@ -4404,11 +4526,16 @@ def main() -> int:
         + sum(gen8["served_launches"]["conv2d_int8"].values()),
         "launches_by_path": {"forward": gen8["launches_per_forward"][
             "conv2d_int8"], "engine": gen8["served_launches"]["conv2d_int8"]},
+        "launches_by_kernel_path": {
+            "forward": gen8["launches_per_forward"]["conv2d_int8_paths"],
+            "engine": gen8["served_launches"]["conv2d_int8_paths"]},
         # bit-equal to the plain version in every case (11a, 11b)
         "max_abs_err": 0.0,
         # device time per launch by CUDA graph replay, bf16 out, batch 64,
-        # the 13 main-path shapes summed
+        # the 13 main-path shapes summed: the wgmma path, and the earlier
+        # kernel (the general path) in the same run
         "ms": sum(r["ms"] for r in rows8),
+        "earlier_kernel_ms": sum(r["earlier_kernel_ms"] for r in rows8),
         "plain_ms": sum(r["plain_ms"] for r in rows8),
         "bound_ms": sum(r["bound_ms"] for r in rows8),
         "share_of_bound": sum(r["bound_ms"] for r in rows8)
@@ -4420,6 +4547,10 @@ def main() -> int:
         # bf16 conv of the same shape is a yardstick of another function
         "library_ms": None,
         "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in rows8),
+        # torch._int_mm of the same-sized GEMMs: no gather, no epilogue
+        "int_mm_ms": sum(r["int_mm_ms"] for r in rows8),
+        # the wrapper's host time per call, per shape (host clock)
+        "host_us": [r["host_us"] for r in rows8],
         "timed": f"bf16 out, batch {TIME_BATCH}, 13 main-path shapes summed",
         "shapes": rows8,
     }

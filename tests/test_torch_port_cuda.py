@@ -698,6 +698,62 @@ def test_conv2d_int8_bit_equal_to_plain(dev, shape, out_ch, k, mode,
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+# (x shape, O, k, mode, the path the plan chooses): the cases above, a
+# split-K shape (4x4, 512 -> 512, batch 64) and a ragged M and N
+INT8_PATH_CASES = [
+    ((2, 8, 8, 512), 512, 3, dict(stride=1, padding=1), "wgmma"),
+    ((2, 8, 8, 512), 512, 3, dict(stride=2, transpose=True), "wgmma"),
+    ((2, 64, 64, 512), 256, 3, dict(stride=2, transpose=True), "wgmma"),
+    ((1, 9, 7, 20), 6, 3, dict(stride=2, padding=0), "general"),
+    ((2, 5, 6, 6), 20, 3, dict(stride=2, transpose=True), "general"),
+    ((1, 11, 9, 64), 32, 1, dict(stride=1, padding=0), "general"),
+    ((64, 4, 4, 512), 512, 3, dict(stride=1, padding=1), "wgmma"),
+    ((3, 11, 13, 64), 40, 3, dict(stride=1, padding=1), "wgmma")]
+
+
+@pytest.mark.parametrize("shape,out_ch,k,mode,path", INT8_PATH_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32,
+                                       torch.bfloat16])
+def test_conv2d_int8_paths_bit_equal_to_plain(dev, shape, out_ch, k, mode,
+                                              path, out_dtype):
+    """``conv2d_int8`` launches the path its plan names, counted by path
+    and by mode; that path and, where the wgmma path takes the shape, the
+    earlier (general-path) kernel are both bit-equal to the plain
+    version."""
+    from transeditor_tpu_torch.ops import quant
+
+    g = torch.Generator(dev).manual_seed(sum(shape) + out_ch + 1)
+    xq = torch.randint(-127, 128, shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (out_ch, shape[3], k, k), generator=g,
+                       device=dev, dtype=torch.int8)
+    sx = torch.rand(shape[0], generator=g, device=dev) * 1e-2
+    sw = torch.rand(out_ch, generator=g, device=dev) * 1e-2
+    full = {"padding": 0, "transpose": False, **mode}
+    plan, x, w = quant.prepare(xq, wq, out_dtype=out_dtype, **full)
+    assert plan.path == path
+    if shape[0] == 64:
+        assert plan.split > 1
+    by_path, by_mode = quant.launches.by_path, quant.launches.by_role
+    got = quant.conv2d_int8(xq, wq, sx=sx, sw=sw, out_dtype=out_dtype,
+                            **mode)
+    torch.cuda.synchronize()
+    m = quant._mode(mode["stride"], full["transpose"])
+    assert quant.launches.by_path.get(path, 0) == by_path.get(path, 0) + 1
+    assert quant.launches.by_role.get(m, 0) == by_mode.get(m, 0) + 1
+    acc = quant.conv2d_int8_plain(xq, wq, **mode)
+    want = acc if out_dtype == torch.int32 else \
+        quant.dequantize_plain(acc, sx, sw, out_dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if path == "wgmma":
+        general, x, w = quant.prepare(xq, wq, out_dtype=out_dtype,
+                                      general=True, **full)
+        scales = (None, None) if out_dtype == torch.int32 else (sx, sw)
+        earlier = quant.launch(general, x, w, *scales)
+        torch.cuda.synchronize()
+        assert torch.equal(earlier, want)
+
+
 def test_conv2d_int8_wrapper_refuses(dev):
     from transeditor_tpu_torch.ops import quant
 

@@ -211,3 +211,31 @@ def test_clis_run_on_the_card_unless_the_cpu_is_asked_for(assets,
                                str(tmp_path / "s.pkl")])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
+
+
+def test_evaluate_decodes_ppl_in_float32_under_default_flags(assets,
+                                                              monkeypatch):
+    """Under the default ``--dtype bfloat16``, ``cli.evaluate`` hands PPL
+    a float32 generator (its eps-1e-4 steps lie under a bf16 ulp of the
+    codes) and LPIPS diversity the bfloat16 one."""
+    seen = {"ppl": [], "lpips": []}
+
+    def ppl(g, *args, **kwargs):
+        seen["ppl"].append((g.cfg.dtype, g.cfg.compute_dtype))
+        return 1.0
+
+    def diversity(g, *args, **kwargs):
+        seen["lpips"].append((g.cfg.dtype, g.cfg.compute_dtype))
+        return {"all": 1.0}
+
+    monkeypatch.setattr(tev, "compute_ppl", ppl)
+    monkeypatch.setattr(tev, "evaluate_lpips_diversity", diversity)
+    out = _run(evaluate.main, [
+        "--ckpt", assets["g"], "--ppl", "--lpips", "--ppl_samples", "2",
+        "--lpips_batches", "1", "--batch", "2", "--lpips_weights",
+        assets["alex"], "--ppl_lpips_weights", assets["vgg"], "--size",
+        str(SIZE), "--num_trans", "1", "--device", "cpu"])
+    assert seen["ppl"] == [("float32", torch.float32)] * 3
+    assert seen["lpips"] == [("bfloat16", torch.bfloat16)]
+    rep = json.loads(out.strip().splitlines()[-1])
+    assert rep["ppl"] == {"all": 1.0, "p": 1.0, "z": 1.0}

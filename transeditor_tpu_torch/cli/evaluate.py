@@ -13,7 +13,12 @@ Usage, on the card:
 
 With --ckpt_dir, evaluates every checkpoint and reports the best FID.
 The flags, defaults (a bfloat16 generator) and JSON lines are the JAX
-CLI's, plus ``--device``.  A network without its weights flag is the
+CLI's, plus ``--device``, with one difference by design: ``--ppl``
+decodes PPL's endpoints through a float32 copy of the generator whatever
+``--dtype`` is.  PPL's steps of eps = 1e-4 lie under a bfloat16 ulp of
+nearly every code element, so bfloat16 decodes differ by rounding jumps
+and the score measures rounding; FID and LPIPS diversity keep
+``--dtype``.  A network without its weights flag is the
 port's seeded random one, with the JAX CLI's warning (the JAX CLI's are
 flax's, which the port cannot reproduce); codes are drawn from
 ``torch.Generator``s, not ``jax.random``.
@@ -22,6 +27,7 @@ flax's, which the port cannot reproduce); codes are drawn from
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import json
 import os
@@ -117,16 +123,23 @@ def main(argv=None):
     ckpts = [args.ckpt] if args.ckpt else sorted(
         glob.glob(os.path.join(args.ckpt_dir, "*.pt")))
     g = Generator(cfg, device=dev).eval()
+    g_ppl = g                  # PPL in float32 whatever --dtype is
+    if args.ppl and cfg.dtype != "float32":
+        g_ppl = Generator(dataclasses.replace(cfg, dtype="float32"),
+                          device=dev).eval()
     best_fid, best_ckpt = float("inf"), None
     results = []
     for ck in ckpts:
-        g.load_state_dict(load_reference_generator(ck, cfg), strict=True)
+        state = load_reference_generator(ck, cfg)
+        g.load_state_dict(state, strict=True)
+        if g_ppl is not g:
+            g_ppl.load_state_dict(state, strict=True)
         report = evaluate_checkpoint(
             g, inception=inception, real_stats=real_stats, lpips=lpips,
             ppl_lpips=ppl_lpips, do_fid=args.fid, do_lpips=args.lpips,
             do_ppl=args.ppl, fid_samples=fid_samples,
             lpips_batches=args.lpips_batches, ppl_samples=args.ppl_samples,
-            batch=args.batch, ppl_slerp=args.ppl_slerp)
+            batch=args.batch, ppl_slerp=args.ppl_slerp, ppl_g=g_ppl)
         out = {"ckpt": ck, "fid": report.fid, "lpips": report.lpips,
                "ppl": report.ppl}
         if args.prdc:

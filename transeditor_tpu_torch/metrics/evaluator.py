@@ -230,11 +230,14 @@ def evaluate_checkpoint(g, *, inception=None, real_stats=None, lpips=None,
                         ppl_lpips=None, do_fid=False, do_lpips=False,
                         do_ppl=False, fid_samples=69_000, lpips_batches=1000,
                         ppl_samples=10_000, batch=64, ppl_slerp=False,
-                        draws: Optional[Dict] = None) -> EvalReport:
+                        draws: Optional[Dict] = None,
+                        ppl_g=None) -> EvalReport:
     """The reference's two perceptual nets: AlexNet LPIPS (``lpips``) for
     diversity, net-lin VGG (``ppl_lpips``) for PPL.  ``draws``: optional
     {"fid": [...], "lpips": [...], "ppl": {space: [...]}} in place of the
-    seeded draws of each protocol."""
+    seeded draws of each protocol.  ``ppl_g``: the generator PPL decodes
+    through (``cli.evaluate`` passes a float32 copy of ``g``); default
+    ``g``."""
     draws = draws or {}
     report = EvalReport()
     if do_fid:
@@ -250,9 +253,9 @@ def evaluate_checkpoint(g, *, inception=None, real_stats=None, lpips=None,
         assert ppl_lpips is not None
         ppl_draws = draws.get("ppl", {})
         report.ppl = {
-            space: compute_ppl(g, ppl_lpips, space=space, eval_plus=True,
-                               crop=True, use_slerp=ppl_slerp,
-                               n_samples=ppl_samples, batch=batch,
-                               draws=ppl_draws.get(space))
+            space: compute_ppl(g if ppl_g is None else ppl_g, ppl_lpips,
+                               space=space, eval_plus=True, crop=True,
+                               use_slerp=ppl_slerp, n_samples=ppl_samples,
+                               batch=batch, draws=ppl_draws.get(space))
             for space in PPL_SPACES}
     return report
