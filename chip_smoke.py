@@ -256,12 +256,29 @@ torch.profiler (the order is at the end of this list).
      ``cli.align --landmarks`` on 8 seeded synthetic 1024px PNGs (file
      tree, seconds); ``utils.profiling.trace`` around one forward (a
      non-empty Chrome trace with the kernel's launches).
+  13. the (data, model) mesh, async saves and BMP input, in
+     build/smoke_mesh, removed at the end.  One card cannot hold a 2-rank
+     NCCL group, so the mesh runs on a world-1 group whose collectives
+     and sharding rule are forced on (``create_mesh(force=True)``):
+     13a (a main path, counted) two full-width ``--fsdp`` R1 + path
+     steps through the all-gathers and reduce-scatters against the
+     unsharded steps (1e-5 of each tensor's largest), ms a step, bytes
+     at rest and by the rule at (4, 1) and (2, 2); 13b ``fused_blur4``
+     forward and adjoint on the model axis's channel slices (C / 2,
+     C / 4 at every stage, f32 batch 16) against the plain version, on
+     the planned TMA path, ms by graph replay; 13c ``evaluate_fid(
+     mesh=)`` equal to no mesh; 13d the full-width train state saved
+     synchronously and in the background (seconds, the loop's blocked
+     seconds, files equal); 13e a BMP folder through the folder source
+     (and ``cli.prepare_data`` where libjpeg is present); 13f cuDNN's
+     time for the 128px stage's conv whole and as a model rank's half
+     at the path batch.
 
 Phase 1 builds the three kernel libraries at once, one ``nvcc`` each.
 The phases run in the order 1, 2a, 3, 11, 7a, 8a, 9a, 9b, 10a, 2b, 3b,
 4, 5a, 5b, 6, then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's
-profile, 9c, 9d, 9e, 10a's profile and replays, 10b, 10c, 10d, 10e, 12
-(11d right after 3b).  The last three lines are the card line, the
+profile, 9c, 9d, 9e, 10a's profile and replays, 10b, 10c, 10d, 10e, 12,
+13 (11d right after 3b).  The last three lines are the card line, the
 kernels line and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Imports nothing of JAX or of the JAX package.
@@ -277,6 +294,7 @@ import os
 import pathlib
 import shutil
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1282,8 +1300,8 @@ def cli_train_phase(fb, dev, root: pathlib.Path, data: dict,
     timed = []
     make_step = loop.make_train_step
 
-    def timed_make(cfg, tcfg, device=None):
-        step = make_step(cfg, tcfg, device=device)
+    def timed_make(cfg, tcfg, device=None, **kw):
+        step = make_step(cfg, tcfg, device=device, **kw)
 
         def run(state, real, rng, do_d_reg=False, do_g_reg=False,
                 do_spatial_reg=False, draws=None):
@@ -1396,10 +1414,10 @@ def data_parallel_phase(dev, **cfg_kw) -> dict:
     reduce_grads = gan.all_reduce_grads
     multi_process = multihost.multi_process
 
-    def timed_reduce(grads):
+    def timed_reduce(grads, mesh=None):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = reduce_grads(grads)
+        out = reduce_grads(grads, mesh)
         torch.cuda.synchronize()
         reduce_ms.append((time.perf_counter() - t) * 1e3)
         return out
@@ -4205,6 +4223,454 @@ def remaining_cli_phase(fb, dev, root: pathlib.Path, model_argv: list,
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+MESH_STEPS = 2                     # 13a: R1 + path steps, sharded and not
+MESH_FID_SAMPLES = 128             # 13c: two batches of 64
+N_BMP_IMAGES = 16                  # 13e: the BMP folder
+MESH_SLICES = (2, 4)               # 13b: C / n_model at every stage
+
+
+@contextlib.contextmanager
+def world_one_group(dev):
+    """A process group of one (NCCL on the card, gloo on the CPU) joined
+    through ``multihost.initialize()``, left on exit, the environment
+    restored."""
+    from transeditor_tpu_torch.parallel import multihost
+
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        os.environ.update(env)
+        check(multihost.initialize(dev), "multihost.initialize() joined "
+                                         "no process group")
+        yield
+    finally:
+        multihost.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _predicted_bytes(state, n_data: int, n_model: int, fsdp: bool) -> float:
+    """Bytes one rank would hold of params, g_ema and Adam moments on an
+    (n_data, n_model) mesh, by ``param_partition_spec`` from the full
+    shapes (moments follow their parameters; g_ema is g's layout)."""
+    from transeditor_tpu_torch.parallel.mesh import Mesh, param_partition_spec
+
+    mesh = Mesh(n_data, n_model)
+    total = 0.0
+    for module, copies in ((state.g, 4), (state.d, 3)):
+        for name, p in module.named_parameters():
+            spec = param_partition_spec(name, p, mesh, fsdp=fsdp)
+            n = ((n_model if "model" in spec else 1)
+                 * (n_data if "data" in spec else 1))
+            total += copies * p.numel() * 4 / n
+    return total
+
+
+def mesh_fsdp_phase(fb, dev, **cfg_kw) -> dict:
+    """13a (a main path, counted): ``MESH_STEPS`` full-width R1 + path
+    steps (f32, batch 16) with ``fsdp`` on a world-1 group whose mesh
+    forces its data axis's collectives and sharding rule on
+    (``create_mesh(force=True)``: every eligible tensor is cut into a
+    block of the whole, and each phase's all-gathers, reduce-scatters
+    and all-reduces run), against the same steps without a mesh, from the
+    same state and draws.  At lr 0 with cuDNN deterministic (see
+    ``data_parallel_phase``): parameters, g_ema and both Adam moments
+    within 1e-5 of each tensor's largest (1e-8 / 1e-16 for gradients
+    that are 0 in exact arithmetic), metrics within 1e-5.  Reports ms a
+    step both ways, the bytes held at rest, and the bytes one rank would
+    hold on 4 cards at (4, 1) with fsdp and at (2, 2)."""
+    from transeditor_tpu_torch.config import ModelConfig, TrainConfig
+    from transeditor_tpu_torch.io.checkpoint import full_state_dicts
+    from transeditor_tpu_torch.parallel.mesh import create_mesh, local_bytes
+    from transeditor_tpu_torch.train import gan
+
+    cfg = ModelConfig(**cfg_kw)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, lr=0.0)
+    g = torch.Generator().manual_seed(21)
+    pb = TRAIN_BATCH // tcfg.path_batch_shrink
+
+    def zp(b):
+        return [torch.randn((b, cfg.n_tokens, cfg.style_dim), generator=g)
+                for _ in "zp"]
+
+    draws = [{"d": zp(TRAIN_BATCH), "g": zp(TRAIN_BATCH),
+              "path": [*zp(pb), torch.randn((pb, cfg.size, cfg.size, 3),
+                                            generator=g) / cfg.size]}
+             for _ in range(MESH_STEPS)]
+    reals = [torch.from_numpy(b) for b in
+             synthetic_batches(MESH_STEPS, TRAIN_BATCH, cfg.size, seed=22)]
+
+    def steps(mesh=None):
+        state = gan.init_state(cfg, tcfg, seed=0, device=dev)
+        full = local_bytes([p for m in (state.g, state.d, state.g_ema)
+                            for p in m.parameters()])
+        if mesh is not None:
+            gan.shard_state(state, mesh, fsdp=True)
+        step = gan.make_train_step(cfg, tcfg, device=dev, mesh=mesh,
+                                   fsdp=mesh is not None)
+        ms = []
+        for k in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, reals[k], torch.Generator(dev)
+                            .manual_seed(k), do_d_reg=True, do_g_reg=True,
+                            draws=draws[k])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return state, m, ms, full
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ref, m_ref, ref_ms, full_params = steps()
+        with world_one_group(dev):
+            mesh = create_mesh(force=True)
+            torch.cuda.synchronize()
+            fb.launches.reset()                  # the main path starts here
+            run, m_run, run_ms, _ = steps(mesh)
+            torch.cuda.synchronize()
+            launches = fb.launches.by_role_path  # ... and ends here
+            moments = [v for opt in (run.opt_g, run.opt_d)
+                       for st in opt.state.values() for k, v in st.items()
+                       if k != "step"]
+            held = local_bytes([p for m in (run.g, run.d, run.g_ema)
+                                for p in m.parameters()] + moments)
+            sharded = sum(len(lay.sharded) for lay in
+                          (run.sharding.g, run.sharding.d))
+            got = full_state_dicts(run)          # gathered: a collective
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = (0.0, "every tensor")
+    for tag, module, opt in (("g", ref.g, ref.opt_g), ("d", ref.d, ref.opt_d)):
+        names = [n for n, _ in module.named_parameters()]
+        pairs = []
+        for i, (name, p) in enumerate(module.named_parameters()):
+            pairs.append((f"{tag} {name}", got[tag][name], p, 0.0))
+            for key, floor in (("exp_avg", 1e-8), ("exp_avg_sq", 1e-16)):
+                pairs.append((f"{tag} {name} {key}",
+                              got[f"{tag}_optim"]["state"][i][key],
+                              opt.state[p][key], floor))
+        if tag == "g":
+            pairs += [(f"g_ema {n}", got["g_ema"][n], p, 0.0) for n, p in
+                      zip(names, ref.g_ema.parameters())]
+        for what, a, b, floor in pairs:
+            err = (a - b).abs().max().item()
+            tol = 1e-5 * b.abs().max().item() + floor
+            check(err <= tol, f"13a {what}: {err} > {tol}")
+            rel = err / max(b.abs().max().item(), 1e-30)
+            if err > floor and rel > worst[0]:
+                worst = (rel, what)
+    for k in m_ref:
+        check(abs(float(m_run[k]) - float(m_ref[k]))
+              <= 1e-5 * abs(float(m_ref[k])) + 1e-7, f"13a metric {k}")
+    n_launch = sum(n for by in launches.values() for n in by.values())
+    check(n_launch > 0 and set(launches.get("forward", {})) == {"tma"},
+          f"13a launches {launches}")
+    out = {"ms_per_step": run_ms, "unsharded_ms_per_step": ref_ms,
+           "worst_rel": worst[0], "worst_at": worst[1],
+           "launches": launches, "sharded_tensors": sharded,
+           "bytes_at_rest_world1": held,
+           "param_bytes_unsharded": full_params,
+           "state_bytes_unsharded": _predicted_bytes(ref, 1, 1, False),
+           "bytes_per_rank_4x1_fsdp": _predicted_bytes(ref, 4, 1, True),
+           "bytes_per_rank_2x2_fsdp": _predicted_bytes(ref, 2, 2, True),
+           "bytes_per_rank_2x2": _predicted_bytes(ref, 2, 2, False)}
+    print(f"13a fsdp (world 1, the data axis's collectives and sharding "
+          f"forced on): "
+          f"{MESH_STEPS} R1 + path steps equal the unsharded steps: worst "
+          f"{worst[0]:.2e} of the tensor's largest ({worst[1]}); "
+          f"{sharded} tensors of g and d sharded; ms a step "
+          f"{[round(t, 1) for t in run_ms]} vs unsharded "
+          f"{[round(t, 1) for t in ref_ms]}; state {out['state_bytes_unsharded'] / 2**30:.3f} GiB unsharded, "
+          f"{out['bytes_per_rank_4x1_fsdp'] / 2**30:.3f} GiB a rank at "
+          f"(4, 1) fsdp, {out['bytes_per_rank_2x2_fsdp'] / 2**30:.3f} at "
+          f"(2, 2) fsdp, {out['bytes_per_rank_2x2'] / 2**30:.3f} at (2, 2) "
+          f"(by the rule); launches {launches}", flush=True)
+    return out
+
+
+def slice_blur_phase(fb, dev) -> dict:
+    """13b: ``fused_blur4`` forward (scale, bias, activation) and adjoint
+    (the backward's ``grad_x`` launch) at f32 batch 16 on the channel
+    slices a model axis of 2 and 4 ranks would give each stage (C / 2,
+    C / 4), each on the path ``plan_tiles`` plans (TMA for all), held to
+    the plain version; device ms by CUDA graph replay, the plain
+    version's, and the bytes bound."""
+    rows = []
+    g = torch.Generator(dev).manual_seed(23)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for h, c in MAIN_SHAPES:
+        for n in MESH_SLICES:
+            cs = c // n
+            x = torch.randn((TRAIN_BATCH, h, h, cs), generator=g, device=dev)
+            scale = torch.rand((TRAIN_BATCH, cs), generator=g,
+                               device=dev) + 0.5
+            bias = torch.randn((cs,), generator=g, device=dev)
+            gy = torch.randn((TRAIN_BATCH, h - 1, h - 1, cs), generator=g,
+                             device=dev)
+            fwd = (x, TAPS, (1, 1), scale, bias, True)
+            adj = (gy, TAPS[::-1], (2, 2), scale, None, False)
+            row = {"shape": [TRAIN_BATCH, h, h, cs], "n_model": n}
+            for role, args in (("forward", fwd), ("adjoint", adj)):
+                b_, hh, ww, cc = args[0].shape
+                plan = fb.plan_tiles(b_, hh, ww, cc, torch.float32, args[2],
+                                     args[0].data_ptr() % 16 == 0, sm)
+                check(plan.path == "tma", f"13b {role} {row['shape']}: "
+                                          f"planned {plan.path}")
+                err, _ = hold_to_plain(fb.fused_blur4(*args),
+                                       fb.fused_blur4_plain(*args),
+                                       f"13b {role} {row['shape']}")
+                ho = hh + sum(args[2]) - 3
+                epi = b_ * cc * 4 + (cc * 4 if args[4] is not None else 0)
+                nbytes = args[0].numel() * 4 + b_ * ho * ho * cc * 4 + epi
+                flops = b_ * ho * ho * cc * 20   # 8 FMAs + the epilogue
+                row[role] = {
+                    "path": plan.path, "max_abs_err": err,
+                    "ms": device_ms(lambda a=args: fb.fused_blur4(*a)),
+                    # the plain version builds its taps on the host: no
+                    # graph capture, events around the calls
+                    "plain_ms": time_ms(
+                        lambda a=args: fb.fused_blur4_plain(*a), reps=5),
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                    flops / F32_FLOPS_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                 >= flops / F32_FLOPS_PER_S
+                                 else "operations")}
+            rows.append(row)
+    for role in ("forward", "adjoint"):
+        for n in MESH_SLICES:
+            sel = [r[role] for r in rows if r["n_model"] == n]
+            print(f"13b {role} on C/{n} slices, f32 b{TRAIN_BATCH}, six "
+                  f"stages: {sum(r['ms'] for r in sel):.4f} ms (bound "
+                  f"{sum(r['bound_ms'] for r in sel):.4f}, plain "
+                  f"{sum(r['plain_ms'] for r in sel):.4f}), max abs err "
+                  f"{max(r['max_abs_err'] for r in sel):.2e}, all TMA",
+                  flush=True)
+    return {"rows": rows}
+
+
+def mesh_fid_phase(dev, **cfg_kw) -> dict:
+    """13c: ``evaluate_fid`` with ``mesh=`` (a world-1 group, the data
+    axis forced on: each batch's rows decoded and their features
+    all-gathered) against no mesh: the statistics handed to the Fréchet
+    distance (recorded; the distance itself is the host's ``sqrtm``)
+    equal.  The bf16 full-width generator (ToRGB at 1/32, as phase 10)
+    and a seeded random pytorch-fid InceptionV3."""
+    from transeditor_tpu_torch.config import ModelConfig
+    from transeditor_tpu_torch.metrics import evaluator
+    from transeditor_tpu_torch.metrics.inception import load_fid_inception
+    from transeditor_tpu_torch.models.generator import Generator
+    from transeditor_tpu_torch.parallel.mesh import create_mesh
+
+    g = Generator(ModelConfig(dtype="bfloat16", **cfg_kw), device=dev,
+                  seed=0).eval()
+    with torch.no_grad():
+        for to_rgb in (g.to_rgb1, *g.to_rgbs):
+            to_rgb.conv.weight.mul_(TO_RGB_GAIN)
+    inc = load_fid_inception(fid_inception_state_dict(10)).to(dev)
+    seen = []
+    frechet = evaluator.frechet_distance
+
+    def record(mean, cov, *_):
+        seen.append((mean, cov))
+        return 0.0
+
+    evaluator.frechet_distance = record
+    times = []
+    try:
+        for mesh_on in (False, True):
+            with (world_one_group(dev) if mesh_on
+                  else contextlib.nullcontext()):
+                mesh = create_mesh(force=True) if mesh_on else None
+                t = time.perf_counter()
+                evaluator.evaluate_fid(g, inc, None, None,
+                                       n_samples=MESH_FID_SAMPLES,
+                                       batch=METRIC_BATCH, mesh=mesh)
+                times.append(time.perf_counter() - t)
+    finally:
+        evaluator.frechet_distance = frechet
+    (m0, c0), (m1, c1) = seen
+    err = max(float(np.abs(m1 - m0).max() / np.abs(m0).max()),
+              float(np.abs(c1 - c0).max() / np.abs(c0).max()))
+    check(err <= 1e-5, f"13c evaluate_fid(mesh=) statistics differ: {err}")
+    print(f"13c evaluate_fid(mesh=) of {MESH_FID_SAMPLES} samples equals "
+          f"no mesh: statistics within {err:.2e} of the largest; "
+          f"{times[0]:.2f} s without, {times[1]:.2f} s with", flush=True)
+    return {"stats_rel": err, "s": times}
+
+
+def save_phase(dev, root: pathlib.Path, **cfg_kw) -> dict:
+    """13d: the full-width train state (f32 g, d, g_ema and both Adam
+    moments after one plain step) saved synchronously, and
+    asynchronously with a train step run while the write is in flight:
+    seconds of each save, the seconds the caller is blocked by the async
+    one (the host copy), the write's seconds after it, and the two files
+    equal tensor for tensor."""
+    from transeditor_tpu_torch.config import ModelConfig, TrainConfig
+    from transeditor_tpu_torch.io.checkpoint import (save_train_state,
+                                                     wait_for_saves)
+    from transeditor_tpu_torch.train import gan
+
+    cfg = ModelConfig(**cfg_kw)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    state = gan.init_state(cfg, tcfg, seed=0, device=dev)
+    step = gan.make_train_step(cfg, tcfg, device=dev)
+    real = torch.from_numpy(synthetic_batches(1, TRAIN_BATCH, cfg.size,
+                                              seed=24)[0])
+    state, _ = step(state, real, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sync = save_train_state(str(root / "sync"), 1, state)
+    sync_s = time.perf_counter() - t
+    t = time.perf_counter()
+    path = save_train_state(str(root / "async"), 1, state, async_save=True)
+    blocked_s = time.perf_counter() - t
+    state, _ = step(state, real, torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t - blocked_s
+    t = time.perf_counter()
+    wait_for_saves()
+    waited_s = time.perf_counter() - t
+    a = torch.load(sync, weights_only=True)
+    b = torch.load(path, weights_only=True)
+
+    def same(x, y):
+        if torch.is_tensor(x):
+            return torch.equal(x, y)
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y
+
+    check(same(a, b), "13d the async file differs from the sync one")
+    size = os.path.getsize(sync)
+    print(f"13d full-width train state ({size / 2**30:.3f} GiB): sync save "
+          f"{sync_s:.2f} s; async blocks the loop {blocked_s:.2f} s, a "
+          f"train step ran meanwhile ({step_s:.2f} s), then {waited_s:.2f} "
+          f"s of write remained; files equal", flush=True)
+    return {"bytes": size, "sync_s": sync_s, "async_blocked_s": blocked_s,
+            "step_during_write_s": step_s, "wait_after_s": waited_s}
+
+
+def _bmp_bytes(img: np.ndarray) -> bytes:
+    """A 24-bit BI_RGB BMP of [H, W, 3] uint8 RGB, rows bottom-up."""
+    h, w, _ = img.shape
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    pixels = rows.tobytes()
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(pixels),
+                       2835, 2835, 0, 0)
+    return (b"BM" + struct.pack("<IHHI", 54 + len(pixels), 0, 0, 54)
+            + info + pixels)
+
+
+def bmp_phase(root: pathlib.Path, size: int = 256) -> dict:
+    """13e: a folder of ``N_BMP_IMAGES`` 24-bit BMPs at 300px (resized)
+    read through ``ImageFolderSource`` and the training iterator, equal
+    to the same images read from PNGs; the iterator's img/s; with
+    libjpeg, ``cli.prepare_data`` on the BMP folder too."""
+    from transeditor_tpu_torch.data.dataset import (ImageFolderSource,
+                                                    make_train_iterator)
+    from transeditor_tpu_torch.utils.image import save_png
+
+    imgs = smooth_images(N_BMP_IMAGES, 300, seed=25)
+    for kind in ("bmp", "png"):
+        (root / kind).mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(imgs):
+        (root / "bmp" / f"{i:03d}.bmp").write_bytes(_bmp_bytes(img))
+        save_png(str(root / "png" / f"{i:03d}.png"), img)
+    bmp, png = (ImageFolderSource(str(root / k)) for k in ("bmp", "png"))
+    for i in range(N_BMP_IMAGES):
+        check(np.array_equal(bmp.get(i, size), png.get(i, size)),
+              f"13e BMP {i} differs from its PNG")
+    batch = 8
+    it = make_train_iterator(bmp, batch, size, seed=0, normalize=False)
+    try:
+        next(it)
+        t = time.perf_counter()
+        for _ in range(N_BMP_IMAGES // batch):
+            got = next(it)
+        rate = N_BMP_IMAGES / (time.perf_counter() - t)
+    finally:
+        it.close()
+    check(got.shape == (batch, size, size, 3), f"13e batch {got.shape}")
+    out = {"images": N_BMP_IMAGES, "iterator_img_s": rate,
+           "prepare_data": None}
+    if libjpeg_present():
+        from transeditor_tpu_torch.cli import prepare_data
+        n, _ = _quiet(prepare_data.main, ["--in_dir", str(root / "bmp"),
+                                          "--out", str(root / "lmdb"),
+                                          "--size", str(size)])
+        check(n == N_BMP_IMAGES, f"13e prepare_data wrote {n}")
+        out["prepare_data"] = n
+    said = (f"cli.prepare_data wrote {out['prepare_data']} records"
+            if out["prepare_data"] else
+            "cli.prepare_data not run (no libjpeg on this machine)")
+    print(f"13e {N_BMP_IMAGES} BMPs (300px -> {size}) equal their PNGs "
+          f"through ImageFolderSource; the iterator reads {rate:.1f} "
+          f"img/s; {said}", flush=True)
+    return out
+
+
+def sliced_conv_phase(dev) -> dict:
+    """13f: the 3x3 conv of the 128px stage at the path-length batch (4
+    rows, f32, TF32 off), whole ([256, 256, 3, 3]) and as one rank's half
+    on a 2-rank model axis ([128, 256, 3, 3]): cuDNN's forward ms by
+    events and the peak memory of the call; the half is also timed with
+    cuDNN off (PyTorch's own conv)."""
+    from transeditor_tpu_torch.ops.precision import conv_precision
+
+    conv_precision(torch.float32)
+    g = torch.Generator(dev).manual_seed(26)
+    x = torch.randn((4, 128, 128, 256), generator=g,
+                    device=dev).permute(0, 3, 1, 2)
+    out = {}
+    for name, o, cudnn in (("whole", 256, True), ("half", 128, True),
+                           ("half_no_cudnn", 128, False)):
+        w = torch.randn((o, 256, 3, 3), generator=g, device=dev).contiguous(
+            memory_format=torch.channels_last)
+
+        def conv(w=w, cudnn=cudnn):
+            with torch.backends.cudnn.flags(enabled=cudnn):
+                return F.conv2d(x, w, padding=1)
+
+        conv()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(conv, reps=3, warm=1)
+        out[name] = {"ms": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"13f the 128px stage's 3x3 conv at 4 rows, f32: whole (256 "
+          f"out) {out['whole']['ms']:.3f} ms, peak "
+          f"{out['whole']['peak_gib']:.2f} GiB; one model rank's half (128 "
+          f"out) {out['half']['ms']:.3f} ms, peak "
+          f"{out['half']['peak_gib']:.2f} GiB; the half without cuDNN "
+          f"{out['half_no_cudnn']['ms']:.3f} ms", flush=True)
+    return out
+
+
+def mesh_phase(fb, dev, root: pathlib.Path) -> dict:
+    """Phase 13: the (data, model) mesh, async saves and BMP input."""
+    out = {"fsdp": mesh_fsdp_phase(fb, dev),
+           "slices": slice_blur_phase(fb, dev),
+           "sliced_conv": sliced_conv_phase(dev)}
+    torch.cuda.empty_cache()
+    out["fid"] = mesh_fid_phase(dev)
+    torch.cuda.empty_cache()
+    out["save"] = save_phase(dev, root / "save")
+    torch.cuda.empty_cache()
+    out["bmp"] = bmp_phase(root / "bmp")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4382,6 +4848,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     rest["phase_s"] = time.time() - t12
     print(f"phase 12: {rest['phase_s']:.1f} s", flush=True)
+    t13 = time.time()
+    mesh_root = pathlib.Path(__file__).resolve().parent / "build" / \
+        "smoke_mesh"
+    shutil.rmtree(mesh_root, ignore_errors=True)
+    try:
+        meshed = mesh_phase(fb, dev, mesh_root)
+    finally:
+        shutil.rmtree(mesh_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    meshed["phase_s"] = time.time() - t13
+    print(f"phase 13: {meshed['phase_s']:.1f} s", flush=True)
     metric_launches = {
         k: metrics[k]["launches"] for k in ("fid", "prdc", "ppl",
                                             "diversity")}
@@ -4416,7 +4893,8 @@ def main() -> int:
         + sum(int8["generator"]["launches_per_forward"]["fused_blur4"]
               .values())
         + sum(int8["generator"]["served_launches"]["fused_blur4"].values())
-        + total(rest["visualize_launches"]),
+        + total(rest["visualize_launches"])
+        + total(meshed["fsdp"]["launches"]),
         "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
         "cli_train_launches": cli["train"]["launches"],
@@ -4456,6 +4934,11 @@ def main() -> int:
                 "fused_blur4"],
             "engine": int8["generator"]["served_launches"]["fused_blur4"]},
         "visualize_launches": rest["visualize_launches"],
+        # phase 13a, from 0: two full-width --fsdp R1 + path steps
+        "mesh_launches": meshed["fsdp"]["launches"],
+        # 13b: forward and adjoint on the model axis's channel slices
+        # (C / 2, C / 4), f32 batch 16, by CUDA graph replay
+        "slice_shapes": meshed["slices"]["rows"],
         "launches_per_train_step": {k: v["launches"]
                                     for k, v in train_counts.items()},
         "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
@@ -4463,7 +4946,10 @@ def main() -> int:
                            coached["kernel_vs_plain"]["max_abs_err"],
                            edited["strips"]["replay"]["f32_max_abs"],
                            metrics["kernel_vs_plain"]["f32_max_abs"],
-                           *(r["max_abs_err"] for r in rows)),
+                           *(r["max_abs_err"] for r in rows),
+                           *(r[k]["max_abs_err"]
+                             for r in meshed["slices"]["rows"]
+                             for k in ("forward", "adjoint"))),
         "max_err_f32": errs["max_err_f32"],
         "max_err_bf16": max(errs["max_err_bf16"],
                             *(r["max_abs_err"] for r in rows)),
@@ -4508,6 +4994,7 @@ def main() -> int:
     print(json.dumps({"metrics": metrics}), flush=True)
     print(json.dumps({"int8": int8}), flush=True)
     print(json.dumps({"remaining_cli": rest}), flush=True)
+    print(json.dumps({"mesh": meshed}), flush=True)
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s",
           flush=True)
     print(f"card: {card}", flush=True)

@@ -301,10 +301,19 @@ def test_encode_jpeg_bytes_equal_the_jax_binding(quality):
 
 @pytest.mark.parametrize("name", ["a.webp", "b.bmp"])
 def test_unread_formats_raise_naming_the_file(tmp_path, name):
+    """``.webp`` raises naming the file; ``.bmp`` is read now, equal to
+    the JAX source's PIL read."""
     Image.fromarray(_smooth(1, 8)[0]).save(tmp_path / "ok.png")
-    Image.fromarray(_smooth(1, 8)[0]).save(tmp_path / name)
-    with pytest.raises(ValueError, match=name):
-        dataset.ImageFolderSource(str(tmp_path))
+    Image.fromarray(_smooth(1, 8, seed=1)[0]).save(tmp_path / name)
+    if name.endswith(".webp"):
+        with pytest.raises(ValueError, match=name):
+            dataset.ImageFolderSource(str(tmp_path))
+        return
+    src = dataset.ImageFolderSource(str(tmp_path))
+    want = jax_dataset.ImageFolderSource(str(tmp_path))
+    assert len(src) == len(want) == 2
+    for i in range(2):
+        np.testing.assert_array_equal(src.get(i, 8), want.get(i, 8))
 
 
 @pytest.mark.parametrize("kind", ["palette", "16-bit", "interlaced"])

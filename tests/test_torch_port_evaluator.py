@@ -180,3 +180,58 @@ def test_seeded_draws_take_p_at_param_dim(protocol, monkeypatch):
                                 batch=4, seed=1).values()
     assert widths and set(widths) == {(32, 16)}
     assert all(np.isfinite(v) for v in out)
+
+
+# ------------------------------------------- mesh=: two gloo processes
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    """Both ranks' ``eval`` case of ``tests/torch_port_mesh_worker.py``
+    (one spawn of 2 gloo processes for the module)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path_factory.mktemp("mesh_eval")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests",
+                                      "torch_port_mesh_worker.py"),
+         str(out), "cpu", "eval"],
+        env=dict(os.environ, WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                 OMP_NUM_THREADS="1", PYTHONPATH=repo),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log}"
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)["eval"]
+            for r in range(2)]
+
+
+@pytest.fixture(scope="module")
+def one_process_eval():
+    import torch_port_mesh_worker as mw
+    return mw.eval_case("cpu")
+
+
+@pytest.mark.parametrize("protocol", ["fid", "prdc", "lpips"])
+def test_mesh_on_two_ranks_equals_one_process(mesh_ranks, one_process_eval,
+                                              protocol):
+    """``evaluate_fid`` / ``evaluate_prdc`` / ``evaluate_lpips_diversity``
+    with ``mesh=`` on 2 ranks (each decodes and scores its rows; the
+    features or distances gathered in row order): every rank's value is
+    the one-process value within 1e-5 relative (``mw.check_eval``)."""
+    import torch_port_mesh_worker as mw
+
+    for got in mesh_ranks:
+        mw.check_eval(got, one_process_eval, (protocol,))

@@ -160,6 +160,23 @@ def test_unread_formats_raise_naming_the_file(tmp_path):
         tpaired.load_pair_batch(pairs, 8)
 
 
+def test_bmp_pairs_load_as_the_jax_package(tmp_path):
+    """A ``.bmp`` result (24-bit, 12px, resized to 8) against a ``.png``
+    ground truth: both packages load the same arrays."""
+    (tmp_path / "r").mkdir()
+    (tmp_path / "g").mkdir()
+    rng = np.random.RandomState(4)
+    Image.fromarray(rng.randint(0, 256, (12, 12, 3)).astype(np.uint8)).save(
+        tmp_path / "r" / "a.bmp")
+    save_png(str(tmp_path / "g" / "a.png"),
+             rng.randint(0, 256, (8, 8, 3)).astype(np.uint8))
+    pairs = tpaired.pair_folders(str(tmp_path / "r"), str(tmp_path / "g"))
+    got = tpaired.load_pair_batch(pairs, 8)
+    want = jpaired.load_pair_batch(pairs, 8)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_id_mode_needs_arcface_and_paired_scores_need_a_card(folders,
                                                              monkeypatch):
     for main in (jax_img_metrics, img_metrics.main):

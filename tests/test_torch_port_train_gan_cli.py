@@ -15,6 +15,7 @@ import torch
 import transeditor_tpu.cli.prepare_data as jax_prepare
 import transeditor_tpu.cli.train_gan as jax_cli
 
+from torch_port_encoder_oracle import worker_threads
 from transeditor_tpu_torch.cli import prepare_data, train_gan
 from transeditor_tpu_torch.data.native import NativeLMDB, decode_jpeg
 from transeditor_tpu_torch.io.checkpoint import checkpoint_steps
@@ -141,6 +142,23 @@ def test_main_runs_on_cuda_unless_told(png_folder, monkeypatch):
         train_gan.main([str(png_folder), "--iter", "1"])
 
 
-def test_fsdp_is_not_ported(png_folder):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_gan.main([str(png_folder), "--fsdp", "--device", "cpu"])
+def test_fsdp_is_not_ported(png_folder, tmp_path):
+    """``--fsdp`` is ported now (``parallel/mesh.py``): in one process it
+    trains, and its checkpoint equals the run without it, bit for bit
+    (JAX shards only on a data axis of more than one device)."""
+    files = []
+    for flags in ([], ["--fsdp"]):
+        out = tmp_path / ("fsdp" if flags else "plain")
+        with worker_threads():
+            state = train_gan.main([str(png_folder), "--iter", "2",
+                                    "--out_dir", str(out), *TINY, *flags])
+        assert state.step == 2 and state.sharding is None
+        files.append(torch.load(out / "test" / "checkpoint" / "000001.pt",
+                                weights_only=True))
+    for tag in ("g", "d", "g_ema"):
+        for k, v in files[0][tag].items():
+            assert torch.equal(v, files[1][tag][k]), (tag, k)
+    for tag in ("g_optim", "d_optim"):
+        for i, st in files[0][tag]["state"].items():
+            for k, v in st.items():
+                assert torch.equal(v, files[1][tag]["state"][i][k]), (tag, k)

@@ -9,6 +9,11 @@ N processes, one card each (data parallel; ``--batch`` is the global
 batch, each process loads 1/N of it):
   torchrun --nproc_per_node N -m transeditor_tpu_torch.cli.train_gan ...
 
+``--fsdp`` shards the large parameters, g_ema and the Adam moments over
+the processes (``parallel/mesh.py``); with one process it changes
+nothing.  As in the JAX package, the ``model`` axis has no flag: it is
+reached through ``train(mesh=create_mesh(n_model=...))``.
+
 DATA_DIR: an LMDB written by ``cli/prepare_data.py`` (``data.mdb`` in it,
 or ``--lmdb``), else a folder of PNG / JPEG images.  ``--device cpu``
 trains on the CPU (gloo between processes).
@@ -29,6 +34,7 @@ from transeditor_tpu_torch.data.native import NativeLMDBLoader
 from transeditor_tpu_torch.device import resolve_device
 from transeditor_tpu_torch.io.checkpoint import restore_train_state
 from transeditor_tpu_torch.parallel import multihost
+from transeditor_tpu_torch.parallel.mesh import create_mesh
 from transeditor_tpu_torch.train.gan import init_state
 from transeditor_tpu_torch.train.loop import train
 
@@ -82,7 +88,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint dir to resume from (latest step)")
     p.add_argument("--fsdp", action="store_true",
-                   help="not available in the PyTorch port (ROADMAP.md)")
+                   help="shard large params, g_ema and the Adam moments "
+                        "over the processes (ZeRO/FSDP; several processes "
+                        "only)")
     p.add_argument("--wandb", action="store_true",
                    help="log scalars to wandb if installed")
     p.add_argument("--log_every", type=int, default=50,
@@ -96,12 +104,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None):
     args = parser().parse_args(argv)
-    if args.fsdp:
-        raise NotImplementedError(
-            "--fsdp (sharded parameters and optimizer state) is not "
-            "ported yet: ROADMAP.md, Open item 12 (the JAX package's "
-            "`model` axis and --fsdp)")
-
     dev = resolve_device(args.device)
     # one process per card, from torchrun's environment; before any
     # other work, as the reference's WORLD_SIZE-triggered init
@@ -118,9 +120,10 @@ def main(argv: Optional[List[str]] = None):
 
 def _run(args, dev):
     cfg, tcfg = build_configs(args)
-    local_batch = multihost.local_batch_size(tcfg.batch_size)
-    host_kw = dict(host_index=multihost.process_index(),
-                   host_count=multihost.process_count())
+    # the data axis: every process here (the model axis has no flag)
+    mesh = create_mesh()
+    local_batch = multihost.local_batch_size(tcfg.batch_size, mesh)
+    host_kw = dict(host_index=mesh.data_index, host_count=mesh.n_data)
     if args.lmdb or os.path.exists(os.path.join(args.path, "data.mdb")):
         # uint8 frames, normalised on the device; decoding fans out over
         # the host's cores
@@ -145,7 +148,8 @@ def _run(args, dev):
         return train(cfg, tcfg, data, out_dir=args.out_dir,
                      exp_name=args.exp_name, state=state,
                      start_step=start_step, device=dev,
-                     log_every=args.log_every, use_wandb=args.wandb)
+                     log_every=args.log_every, use_wandb=args.wandb,
+                     mesh=mesh, fsdp=args.fsdp)
     finally:
         data.close()
 

@@ -6,7 +6,13 @@
 //   teimg_resample     - one separable pass of Pillow's fixed-point
 //                        resampling (Resample.c, 8 bits a channel): each
 //                        output pixel a weighted sum of a window of input
-//                        pixels, rounded and clipped to 8 bits.
+//                        pixels, rounded and clipped to 8 bits;
+//   teimg_bmp_info,    - read an uncompressed Windows BMP: BI_RGB at 1, 4
+//   teimg_bmp_decode     and 8 bits (palette), 16 (5-5-5), 24 and 32
+//                        bits, and BI_BITFIELDS at 16 and 32 bits, rows
+//                        bottom-up or top-down, as RGB.  A channel of k
+//                        mask bits becomes v * 255 / (2^k - 1), as
+//                        Pillow's unpackers scale 5- and 6-bit fields.
 //
 // A plain C interface, called through ctypes (which releases the GIL, so
 // the pipeline's reader threads run these in parallel).
@@ -33,9 +39,148 @@ inline int paeth(int a, int b, int c) {
   return pb <= pc ? b : c;
 }
 
+uint32_t le16(const uint8_t* p) { return p[0] | (p[1] << 8); }
+uint32_t le32(const uint8_t* p) {
+  return p[0] | (p[1] << 8) | (p[2] << 16) | (static_cast<uint32_t>(p[3]) << 24);
+}
+
+// Error codes of the BMP reader (utils/image.py names them).
+enum BmpError : long {
+  kBmpOk = 0,
+  kBmpNotBmp = 1,         // no "BM" signature, or a header cut short
+  kBmpHeader = 2,         // an info-header size this reader does not know
+  kBmpCompressed = 3,     // RLE, JPEG, PNG or another compression
+  kBmpDepth = 4,          // a bit depth the compression does not allow
+  kBmpTruncated = 5,      // pixel rows (or the palette) past the file's end
+  kBmpSize = 6,           // width or height zero or beyond 2^15 * 2^15
+};
+
+struct Bmp {
+  long width = 0, height = 0;   // height > 0
+  bool top_down = false;
+  long bpp = 0, compression = 0;
+  long pixels = 0;              // offset of the first stored row
+  long stride = 0;              // bytes a stored row (padded to 4)
+  uint32_t masks[3] = {0, 0, 0};
+  const uint8_t* palette = nullptr;
+  long palette_entry = 4, colors = 0;
+};
+
+long parse_bmp(const uint8_t* d, long size, Bmp* b) {
+  if (size < 26 || d[0] != 'B' || d[1] != 'M') return kBmpNotBmp;
+  const long header = le32(d + 14);
+  if (14 + header > size) return kBmpNotBmp;
+  const uint8_t* h = d + 18;
+  long colors = 0;
+  if (header == 12) {                           // BITMAPCOREHEADER
+    b->width = le16(h);
+    b->height = static_cast<int16_t>(le16(h + 2));
+    b->bpp = le16(h + 6);
+    b->palette_entry = 3;
+  } else if (header == 40 || header == 52 || header == 56 || header == 64 ||
+             header == 108 || header == 124) {
+    b->width = static_cast<int32_t>(le32(h));
+    b->height = static_cast<int32_t>(le32(h + 4));
+    b->bpp = le16(h + 10);
+    b->compression = le32(h + 12);
+    colors = le32(h + 28);
+  } else {
+    return kBmpHeader;
+  }
+  b->top_down = b->height < 0;
+  if (b->top_down) b->height = -b->height;
+  if (b->width <= 0 || b->height <= 0 || b->width > 32768 ||
+      b->height > 32768)
+    return kBmpSize;
+  const long comp = b->compression;
+  if (comp != 0 && comp != 3) return kBmpCompressed;   // 3: BI_BITFIELDS
+  const long bpp = b->bpp;
+  if (comp == 0 && bpp != 1 && bpp != 4 && bpp != 8 && bpp != 16 &&
+      bpp != 24 && bpp != 32)
+    return kBmpDepth;
+  if (comp == 3 && bpp != 16 && bpp != 32) return kBmpDepth;
+  long after = 14 + header;                     // palette or masks follow
+  if (comp == 3) {
+    if (header == 40) {                         // masks after the header
+      if (after + 12 > size) return kBmpTruncated;
+      for (int c = 0; c < 3; ++c) b->masks[c] = le32(d + after + 4 * c);
+      after += 12;
+    } else {
+      for (int c = 0; c < 3; ++c) b->masks[c] = le32(h + 36 + 4 * c);
+    }
+  } else if (bpp == 16) {
+    b->masks[0] = 0x7C00; b->masks[1] = 0x03E0; b->masks[2] = 0x001F;
+  } else if (bpp >= 24) {
+    b->masks[0] = 0xFF0000; b->masks[1] = 0xFF00; b->masks[2] = 0xFF;
+  }
+  if (bpp <= 8) {
+    b->colors = colors > 0 && colors <= (1L << bpp) ? colors : 1L << bpp;
+    if (after + b->colors * b->palette_entry > size) return kBmpTruncated;
+    b->palette = d + after;
+  }
+  b->pixels = le32(d + 10);
+  b->stride = (b->width * bpp + 31) / 32 * 4;
+  if (b->pixels < 0 || b->pixels + b->stride * b->height > size)
+    return kBmpTruncated;
+  return kBmpOk;
+}
+
+// v of the mask's bits, scaled to 8 bits.
+inline uint8_t channel(uint32_t v, uint32_t mask) {
+  if (!mask) return 0;
+  int shift = 0;
+  while (!((mask >> shift) & 1)) ++shift;
+  const uint32_t m = mask >> shift;
+  const uint64_t top = m;                       // 2^bits - 1 for a run
+  return static_cast<uint8_t>(((v & mask) >> shift) * 255ull / top);
+}
+
 }  // namespace
 
 extern "C" {
+
+// info: [width, height, bits a pixel, compression].  Returns a BmpError
+// (info is filled as far as the header was read).
+long teimg_bmp_info(const uint8_t* data, long size, long* info) {
+  Bmp b;
+  const long rc = parse_bmp(data, size, &b);
+  info[0] = b.width; info[1] = b.height; info[2] = b.bpp;
+  info[3] = b.compression;
+  return rc;
+}
+
+// out: [height, width, 3] uint8 RGB, top row first.  Returns a BmpError.
+long teimg_bmp_decode(const uint8_t* data, long size, uint8_t* out) {
+  Bmp b;
+  const long rc = parse_bmp(data, size, &b);
+  if (rc != kBmpOk) return rc;
+  const long w = b.width, bpp = b.bpp;
+  for (long y = 0; y < b.height; ++y) {
+    const long stored = b.top_down ? y : b.height - 1 - y;
+    const uint8_t* row = data + b.pixels + stored * b.stride;
+    uint8_t* dst = out + y * w * 3;
+    for (long x = 0; x < w; ++x, dst += 3) {
+      if (bpp <= 8) {
+        const long bit = x * bpp;
+        const long idx = (row[bit / 8] >> (8 - bpp - bit % 8)) &
+                         ((1 << bpp) - 1);
+        if (idx >= b.colors) {                  // past the palette: black
+          dst[0] = dst[1] = dst[2] = 0;
+          continue;
+        }
+        const uint8_t* e = b.palette + idx * b.palette_entry;
+        dst[0] = e[2]; dst[1] = e[1]; dst[2] = e[0];   // stored B, G, R
+        continue;
+      }
+      const uint8_t* p = row + x * (bpp / 8);
+      const uint32_t v = bpp == 16 ? le16(p)
+                         : bpp == 24 ? (p[0] | (p[1] << 8) | (p[2] << 16))
+                                     : le32(p);
+      for (int c = 0; c < 3; ++c) dst[c] = channel(v, b.masks[c]);
+    }
+  }
+  return kBmpOk;
+}
 
 // rows: [h, 1 + n] as stored in the PNG stream (a filter byte, then n =
 // width * bpp filtered bytes); out: [h, n].  bpp: bytes a pixel.

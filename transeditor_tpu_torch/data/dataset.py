@@ -44,13 +44,13 @@ class ArraySource:
 
 
 class ImageFolderSource:
-    """The images of a folder in sorted name order, PNG or JPEG.  Files
-    named ``.webp`` or ``.bmp`` are listed as the JAX source lists them,
-    but cannot be read without PIL: the constructor raises ``ValueError``
-    naming the first one."""
+    """The images of a folder in sorted name order: PNG, JPEG or BMP.
+    Files named ``.webp`` are listed as the JAX source lists them, but
+    cannot be read without a WebP decoder: the constructor raises
+    ``ValueError`` naming the first one."""
 
     EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
-    UNREAD = (".webp", ".bmp")
+    UNREAD = (".webp",)
 
     def __init__(self, root: str):
         self.paths = sorted(
@@ -60,8 +60,8 @@ class ImageFolderSource:
             raise ValueError(f"no images under {root}")
         unread = [p for p in self.paths if p.lower().endswith(self.UNREAD)]
         if unread:
-            raise ValueError(f"{unread[0]}: .webp and .bmp images are not "
-                             f"read by the PyTorch port (PNG and JPEG are); "
+            raise ValueError(f"{unread[0]}: .webp images are not read by "
+                             f"the PyTorch port (PNG, JPEG and BMP are); "
                              f"convert them first")
 
     def __len__(self):

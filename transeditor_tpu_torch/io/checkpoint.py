@@ -9,6 +9,11 @@ state (g, d, g_ema, both optimizers, the step and the two path-length
 means) in one ``torch.save`` file a step, ``<ckpt_dir>/<step:06d>.pt``.
 As in the JAX package (``cli/train_gan.py:114-119``), checkpoint ``i``
 is the state after step ``i``, so a resumed run starts at ``i + 1``.
+``save_train_state(..., async_save=True)`` copies the state to host
+memory and writes the file on a background thread (at most one write
+in flight; ``wait_for_saves`` waits for it).  A sharded state
+(``train/gan.py::shard_state``) is gathered first, so every file has
+the one-process format whatever mesh wrote it.
 
 ``save_coach_state`` / ``restore_coach_state`` keep the encoder coach's
 state (``train/coach.py``) in one ``torch.save`` file; the JAX coach's
@@ -19,7 +24,8 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -59,26 +65,117 @@ def load_reference_discriminator(pt_path: str, cfg: ModelConfig
     return sd
 
 
-def save_train_state(ckpt_dir: str, step: int, state: Any) -> str:
-    """Write ``state`` (a ``train.gan.GANTrainState``) as the checkpoint
-    of ``step``; returns its path.  The file appears whole or not at all
-    (written beside, then renamed)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"{step:06d}.pt")
-    bundle = {
-        "g": state.g.state_dict(), "d": state.d.state_dict(),
-        "g_ema": state.g_ema.state_dict(),
-        "g_optim": state.opt_g.state_dict(),
-        "d_optim": state.opt_d.state_dict(),
-        "step": int(state.step),
-        "mean_path_length": state.mean_path_length.detach().cpu(),
-        "mean_spatial_path_length":
-            state.mean_spatial_path_length.detach().cpu(),
-    }
+def full_state_dicts(state: Any) -> Dict[str, Any]:
+    """The checkpoint's entries of ``state`` (a ``GANTrainState``): the
+    three modules' and two optimizers' state dicts, the step and the
+    path-length means, as references to the live tensors.  A sharded
+    state is gathered to full tensors first: a collective, which every
+    rank calls."""
+    sh = state.sharding
+    out: Dict[str, Any] = {}
+    for key, module, layout in (("g", state.g, sh and sh.g),
+                                ("d", state.d, sh and sh.d),
+                                ("g_ema", state.g_ema, sh and sh.g_ema)):
+        if layout is None:
+            out[key] = module.state_dict()
+        else:
+            with layout.gathered():
+                out[key] = module.state_dict()
+    for key, opt, layout in (("g_optim", state.opt_g, sh and sh.g),
+                             ("d_optim", state.opt_d, sh and sh.d)):
+        out[key] = (opt.state_dict() if layout is None
+                    else layout.full_optimizer_state(opt))
+    out["step"] = int(state.step)
+    out["mean_path_length"] = state.mean_path_length.detach()
+    out["mean_spatial_path_length"] = \
+        state.mean_spatial_path_length.detach()
+    return out
+
+
+def host_copy(obj: Any) -> Any:
+    """``obj`` (dicts, lists and tuples of tensors and plain values) with
+    every tensor copied into new CPU memory: the copy stays as it is
+    while the modules and optimizers change in place."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_copy(v) for v in obj)
+    return obj
+
+
+def _write(bundle: Dict[str, Any], path: str) -> None:
+    """``torch.save`` beside ``path``, then rename: whole or absent."""
     tmp = path + ".tmp"
     torch.save(bundle, tmp)
     os.replace(tmp, path)
+
+
+class AsyncSaver:
+    """Runs one write at a time on a background thread.  ``submit``
+    waits for the write in flight before it starts the next; ``wait``
+    joins it and raises what it raised."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, fn: Callable[[], None], what: str) -> None:
+        self.wait()
+
+        def run():
+            try:
+                fn()
+            except BaseException as e:       # handed to the next wait()
+                self._error = RuntimeError(f"background save of {what} "
+                                           f"failed: {e!r}")
+                self._error.__cause__ = e
+
+        self._thread = threading.Thread(target=run, name="train-state-save")
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+
+_saver = AsyncSaver()
+
+
+def save_train_state(ckpt_dir: str, step: int, state: Any,
+                     async_save: bool = False) -> str:
+    """Write ``state`` (a ``train.gan.GANTrainState``, or the
+    ``host_copy`` of its ``full_state_dicts``) as the checkpoint of
+    ``step``; returns its path.  The file appears whole or not at all
+    (written beside, then renamed).
+
+    ``async_save=True`` returns once the state is copied to host memory
+    and writes on a background thread, so training goes on; a new save
+    waits for the one in flight first, and ``wait_for_saves()`` waits
+    for it (before the process exits or reads the file).  A sharded
+    state must be passed gathered (every rank computes
+    ``full_state_dicts``; one writes)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"{step:06d}.pt")
+    bundle = state if isinstance(state, dict) else host_copy(
+        full_state_dicts(state))
+    if async_save:
+        _saver.submit(lambda: _write(bundle, path), path)
+    else:
+        _saver.wait()
+        _write(bundle, path)
     return path
+
+
+def wait_for_saves() -> None:
+    """Block until the background save in flight, if any, is written;
+    raises its error."""
+    _saver.wait()
 
 
 def checkpoint_steps(ckpt_dir: str) -> list[int]:

@@ -12,9 +12,16 @@ Each batch is sample -> decode -> float32 -> features on the
 generator's device without gradients; features stream into
 preallocated host stores.  Codes come from a ``torch.Generator`` seeded
 ``seed`` on the generator's device; a parity test passes the JAX
-package's draws in through ``draws=``.  The JAX package's ``mesh=``
-sharding of a batch over several chips is not ported: these functions
-run on one device.
+package's draws in through ``draws=``.
+
+``mesh=`` (``parallel/mesh.py``, one process per card) splits each batch
+over the mesh's data axis, as the JAX package's
+``_shard_batch_constraint`` shards it over chips: every rank draws the
+whole batch's codes from the one seeded generator, decodes and scores
+its contiguous rows, and the features (or LPIPS distances) are
+all-gathered in row order.  The result on every rank is the one-process
+result, whatever the number of ranks.  The batch (and the LPIPS group
+and its pairs) must split evenly over the data axis.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from transeditor_tpu_torch.device import device_of
 from transeditor_tpu_torch.metrics.fid import compute_stats, frechet_distance
@@ -84,13 +92,51 @@ def _decode(g, z, p) -> torch.Tensor:
     return g(z, p).image.float()
 
 
+def _split(mesh) -> bool:
+    """Whether a batch is split over ``mesh``'s data axis."""
+    return mesh is not None and mesh.data_active
+
+
+def _my_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This data rank's contiguous rows of a batch (all of it without a
+    data axis to split over)."""
+    if not _split(mesh):
+        return t
+    n = mesh.n_data
+    if t.shape[0] % n:
+        raise ValueError(f"a batch of {t.shape[0]} does not split over "
+                         f"{n} data ranks")
+    per = t.shape[0] // n
+    return t[mesh.data_index * per:(mesh.data_index + 1) * per]
+
+
+def _all_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data rank's ``t`` (equal shapes) stacked in rank order along
+    dim 0: the inverse of ``_my_rows``."""
+    if not _split(mesh):
+        return t
+    t = t.contiguous()
+    out = t.new_empty((mesh.n_data * t.shape[0], *t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=mesh.data_group)
+    return out
+
+
+def _features(net: Callable, g, z, p, mesh) -> np.ndarray:
+    """``net`` of the decodes of (z, p), this rank's rows of them, and
+    gathered: [batch, features] on the host."""
+    with torch.no_grad():
+        fb = net(_decode(g, _my_rows(z, mesh), _my_rows(p, mesh)))
+        return _all_rows(fb, mesh).cpu().numpy()
+
+
 def evaluate_fid(g, inception: Callable, real_mean, real_cov,
                  n_samples: int = 69_000, batch: int = 64,
                  truncation: float = 1.0, seed: int = 0,
-                 draws: Optional[Sequence] = None) -> float:
+                 draws: Optional[Sequence] = None, mesh=None) -> float:
     """FID of ``n_samples`` decodes against (real_mean, real_cov).
     Features stream into a preallocated store; the surplus rows of the
-    last batch are dropped.  ``draws``: one (Z, P) a batch."""
+    last batch are dropped.  ``draws``: one (Z, P) a batch.  ``mesh``:
+    split each batch over its data axis (module docstring)."""
     rng = _rng(g, seed)
     feats = None
     done = 0
@@ -98,8 +144,7 @@ def evaluate_fid(g, inception: Callable, real_mean, real_cov,
     while done < n_samples:
         z, p = _codes(g, rng, batch, truncation,
                       None if draws is None else draws[i])
-        with torch.no_grad():
-            fb = inception(_decode(g, z, p)).cpu().numpy()
+        fb = _features(inception, g, z, p, mesh)
         if feats is None:
             feats = np.empty((n_samples, fb.shape[1]), np.float32)
         m = min(batch, n_samples - done)
@@ -135,10 +180,12 @@ def real_stats_from_source(source, inception, resolution: int,
 
 
 def make_pairwise_lpips_mean(lpips, n_images: int,
-                             pair_chunk: int = 130) -> Callable:
+                             pair_chunk: int = 130, mesh=None) -> Callable:
     """``images [N, H, W, C] -> scalar``: the mean LPIPS over all
     unordered pairs (i < j) of one group, evaluated as batched LPIPS calls
-    over chunks of ``pair_chunk`` gathered index pairs."""
+    over chunks of ``pair_chunk`` gathered index pairs.  ``mesh``: each
+    data rank scores its contiguous share of the pairs, in chunks of at
+    most ``pair_chunk``, and the distances are gathered in pair order."""
     iu, ju = np.triu_indices(n_images, k=1)
     n_pairs = len(iu)
     # a chunk larger than the pair list cannot be sliced: one chunk
@@ -148,12 +195,13 @@ def make_pairwise_lpips_mean(lpips, n_images: int,
     iu_t, ju_t = torch.from_numpy(iu), torch.from_numpy(ju)
 
     def pairwise_mean(img: torch.Tensor) -> torch.Tensor:
-        ii, jj = iu_t.to(img.device), ju_t.to(img.device)
+        ii = _my_rows(iu_t.to(img.device), mesh)
+        jj = _my_rows(ju_t.to(img.device), mesh)
+        step = min(pair_chunk, len(ii))
         dists = []
-        for s in range(0, n_pairs, pair_chunk):
-            dists.append(lpips(img[ii[s:s + pair_chunk]],
-                               img[jj[s:s + pair_chunk]]))
-        return torch.cat(dists).mean()
+        for s in range(0, len(ii), step):
+            dists.append(lpips(img[ii[s:s + step]], img[jj[s:s + step]]))
+        return _all_rows(torch.cat(dists), mesh).mean()
 
     return pairwise_mean
 
@@ -167,12 +215,15 @@ REGIMES = {"all": (False, False), "fix_z": (False, True),
 def evaluate_lpips_diversity(g, lpips, n_images: int = 40,
                              n_batches: int = 1000, truncation: float = 1.0,
                              seed: int = 0, pair_chunk: int = 130,
-                             draws: Optional[Sequence] = None
+                             draws: Optional[Sequence] = None, mesh=None
                              ) -> Dict[str, float]:
     """Three-regime mean pairwise LPIPS: each of ``n_batches`` rounds
     decodes one group of ``n_images`` per regime (``REGIMES``, in that
-    order).  ``draws``: a round's three (Z, P) pairs, in that order."""
-    pairwise_mean = make_pairwise_lpips_mean(lpips, n_images, pair_chunk)
+    order).  ``draws``: a round's three (Z, P) pairs, in that order.
+    ``mesh``: each data rank decodes its rows of a group and scores its
+    share of the pairs."""
+    pairwise_mean = make_pairwise_lpips_mean(lpips, n_images, pair_chunk,
+                                             mesh)
     rng = _rng(g, seed)
     sums = {k: 0.0 for k in REGIMES}
     for b in range(n_batches):
@@ -181,16 +232,22 @@ def evaluate_lpips_diversity(g, lpips, n_images: int = 40,
                           None if draws is None else draws[b][r],
                           z_same=z_same, p_same=p_same)
             with torch.no_grad():
-                sums[name] += float(pairwise_mean(_decode(g, z, p)))
+                img = _all_rows(_decode(g, _my_rows(z, mesh),
+                                        _my_rows(p, mesh)), mesh)
+                sums[name] += float(pairwise_mean(img))
     return {k: v / n_batches for k, v in sums.items()}
 
 
 def evaluate_prdc(g, vgg, real_source, n_samples: int = 50_000,
                   batch: int = 64, nearest_k: int = 3, seed: int = 0,
-                  draws: Optional[Sequence] = None) -> Dict[str, float]:
+                  draws: Optional[Sequence] = None,
+                  mesh=None) -> Dict[str, float]:
     """PRDC of VGG16-fc7 features (``zoo/backbones.py::VGG16Fc7``) of n
     decodes against n real images, both at the native size, k-NN on the
-    generator's device."""
+    generator's device.  ``mesh``: each data rank scores its rows of
+    each batch, generated and real (a last batch of real images is
+    padded to the batch by repeating its last image, and the padding's
+    features dropped); every rank runs the k-NN on all features."""
     dev = device_of(g)
     rng = _rng(g, seed)
     n = min(n_samples, len(real_source))
@@ -201,11 +258,15 @@ def evaluate_prdc(g, vgg, real_source, n_samples: int = 50_000,
         m = min(batch, n - done)
         z, p = _codes(g, rng, batch, drawn=None if draws is None
                       else draws[i])
-        with torch.no_grad():
-            fb = vgg(_decode(g, z, p)).cpu().numpy()
-        imgs = np.stack([real_source.get(j, g.cfg.size)
-                         for j in range(done, done + m)])
+        fb = _features(vgg, g, z, p, mesh)
+        idx = list(range(done, done + m))
+        if _split(mesh):
+            idx = _my_rows(torch.tensor(idx + [idx[-1]] * (batch - m)),
+                           mesh).tolist()
+        imgs = np.stack([real_source.get(j, g.cfg.size) for j in idx])
         rb = _uint8_features(vgg, imgs, dev)
+        if _split(mesh):
+            rb = _all_rows(torch.from_numpy(rb).to(dev), mesh).cpu().numpy()
         if fake is None:
             fake = np.empty((n, fb.shape[1]), np.float32)
             real = np.empty((n, rb.shape[1]), np.float32)

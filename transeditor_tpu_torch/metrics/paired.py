@@ -10,11 +10,11 @@ cosine of each pair).  Pairs run in fixed-size batches on one device;
 the last batch is padded and the padding's scores are dropped, so no
 file is skipped.
 
-Images are read without PIL (``utils/image.py::load_image``: PNG, or
-JPEG where libjpeg is present) and resized with
+Images are read without PIL (``utils/image.py::load_image``: PNG, BMP,
+or JPEG where libjpeg is present) and resized with
 ``resize_bilinear``, PIL's ``Image.BILINEAR``, when their size differs.
-``.webp`` / ``.bmp`` files are paired as the JAX package pairs them but
-cannot be read: ``load_image`` raises naming the file.  The ID crop is
+``.webp`` files are paired as the JAX package pairs them but cannot be
+read: ``load_image`` raises naming the file.  The ID crop is
 the training ID loss's (``train/coach.py::face_crop`` / ``resize_112``).
 """
 

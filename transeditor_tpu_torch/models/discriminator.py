@@ -21,8 +21,8 @@ from torch import nn
 from transeditor_tpu_torch.config import ModelConfig
 from transeditor_tpu_torch.device import resolve_device
 from transeditor_tpu_torch.nn.layers import ConvLayer, EqualLinear
-from transeditor_tpu_torch.parallel import multihost
-from transeditor_tpu_torch.parallel.data_parallel import all_reduce_sum
+from transeditor_tpu_torch.parallel.data_parallel import (all_reduce_sum,
+                                                          data_axis)
 
 
 class ResBlock(nn.Module):
@@ -51,19 +51,20 @@ def _group_size(b: int, group_size: int) -> int:
 
 
 def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
-                     num_features: int = 1) -> torch.Tensor:
+                     num_features: int = 1, mesh=None) -> torch.Tensor:
     """Append the cross-sample stddev map as extra channels.  The group
     is the largest divisor of the batch not above ``group_size``; the
     variance is biased and taken in float32.
 
     The groups are strided: sample n of a batch of B falls in group
-    n mod (B / g).  Under a process group of more than one process the
-    batch is the global one (rank r holds samples r*b .. r*b + b - 1 of
-    it, as ``parallel/data_parallel.py::local_rows`` lays it out), so a
-    group spans processes: see ``_minibatch_stddev_global``."""
+    n mod (B / g).  When the data axis (``mesh``'s, else the process
+    group's) runs collectives, the batch is the global one (data rank r
+    holds samples r*b .. r*b + b - 1 of it, as
+    ``parallel/data_parallel.py::local_rows`` lays it out), so a group
+    spans ranks: see ``_minibatch_stddev_global``."""
     b, h, w, c = x.shape
-    if multihost.multi_process():
-        return _minibatch_stddev_global(x, group_size, num_features)
+    if data_axis(mesh)[3]:
+        return _minibatch_stddev_global(x, group_size, num_features, mesh)
     g = _group_size(b, group_size)
     y = x.reshape(g, b // g, h, w, num_features,
                   c // num_features).float()
@@ -74,26 +75,26 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
 
 
 def _minibatch_stddev_global(x: torch.Tensor, group_size: int,
-                             num_features: int) -> torch.Tensor:
-    """``minibatch_stddev`` over the global batch of a process group
-    (every process holds the same number of samples).  Each group's mean
-    and then its centred sum of squares are summed across processes
-    from per-process partial sums (two differentiable all-reduces,
-    indexed by global group), so the result equals the single-process
-    one on the whole batch.  Sums into groups and reads back out of them
-    are products with a one-hot [groups, b] matrix, which are
-    deterministic on the card, forward and backward (index_add is not)."""
+                             num_features: int, mesh=None) -> torch.Tensor:
+    """``minibatch_stddev`` over the global batch of the data axis
+    (every rank holds the same number of samples).  Each group's mean
+    and then its centred sum of squares are summed across ranks from
+    per-rank partial sums (two differentiable all-reduces, indexed by
+    global group), so the result equals the single-process one on the
+    whole batch.  Sums into groups and reads back out of them are
+    products with a one-hot [groups, b] matrix, which are deterministic
+    on the card, forward and backward (index_add is not)."""
     b, h, w, c = x.shape
-    world, rank = multihost.process_count(), multihost.process_index()
+    world, rank, _, _ = data_axis(mesh)
     g = _group_size(b * world, group_size)
     n_groups = b * world // g
     group = (rank * b + torch.arange(b, device=x.device)) % n_groups
     onehot = (group[None, :] == torch.arange(n_groups, device=x.device)
               [:, None]).float()                        # [groups, b]
     y = x.reshape(b, -1).float()
-    mean = all_reduce_sum(onehot @ y) / g               # [groups, hwc]
+    mean = all_reduce_sum(onehot @ y, mesh) / g         # [groups, hwc]
     centred = y - onehot.t() @ mean
-    var = all_reduce_sum(onehot @ (centred * centred)) / g
+    var = all_reduce_sum(onehot @ (centred * centred), mesh) / g
     std = torch.sqrt(var + 1e-8).reshape(n_groups, h, w, num_features,
                                          c // num_features)
     std = onehot.t() @ std.mean(dim=(1, 2, 4))          # [b, features]
@@ -105,7 +106,9 @@ class Discriminator(nn.Module):
     """Built on ``device`` (default "cuda"; raises if CUDA is absent and
     the CPU was not asked for) with weights drawn from ``seed``.
     ``forward`` takes NHWC images [B, size, size, 3] and returns logits
-    [B, 1]."""
+    [B, 1].  ``mesh``: the mesh whose data axis holds the global batch of
+    the minibatch stddev (``None``: the process group); the train step
+    sets it."""
 
     def __init__(self, cfg: ModelConfig, *,
                  device: str | torch.device | None = None, seed: int = 0):
@@ -128,11 +131,12 @@ class Discriminator(nn.Module):
             EqualLinear(ch[4] * 4 * 4, ch[4], activation="fused_lrelu",
                         dtype=dtype, rng=rng),
             EqualLinear(ch[4], 1, dtype=dtype, rng=rng))
+        self.mesh = None
         self.to(dev)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = self.convs(img.to(self.cfg.compute_dtype))
-        x = self.final_conv(minibatch_stddev(x))
+        x = self.final_conv(minibatch_stddev(x, mesh=self.mesh))
         # channel-major flatten, as the reference's NCHW view
         x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
         return self.final_linear(x)

@@ -11,6 +11,12 @@ Parameters are float32 and cast to the compute dtype per call.  Token
 tensors are [batch, tokens, features]; images are NHWC.  Each
 constructor draws its initial weights from ``rng`` (a
 ``torch.Generator``; ``None`` means torch's default generator).
+
+``model_axis``: set (to a ``parallel/mesh.py::Mesh``) while a layer's
+weight is held as its output-channel slice on a model axis
+(``ShardedParams.gather_(column=True)``): the layer then computes its
+slice and gathers the full output (``parallel/model_parallel.py``).
+``None``, the default, computes the whole layer.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ from transeditor_tpu_torch.ops.precision import conv_precision
 from transeditor_tpu_torch.ops.resample import (_upsample_pads, blur,
                                                 make_resample_kernel,
                                                 upfirdn2d)
+from transeditor_tpu_torch.parallel.model_parallel import (copy_in,
+                                                           gather_out,
+                                                           slice_of)
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -71,17 +80,23 @@ class EqualLinear(nn.Module):
         self.lr_mul = lr_mul
         self.activation = activation
         self.dtype = dtype
+        self.model_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ax = self.model_axis
+        if ax is not None:
+            x = copy_in(x, ax)
         conv_precision(self.dtype)
         y = F.linear(x.to(self.dtype), (self.weight * self.scale).to(
             self.dtype))
         b = None if self.bias is None else self.bias * self.lr_mul
+        if ax is not None and b is not None:
+            b = slice_of(b, ax)                 # a replicated bias
         if self.activation == "fused_lrelu":
-            return fused_leaky_relu(y, b)
-        if b is not None:
+            y = fused_leaky_relu(y, b)
+        elif b is not None:
             y = y + b.to(y.dtype)
-        return y
+        return y if ax is None else gather_out(y, ax)
 
 
 class PixelNorm(nn.Module):
@@ -125,6 +140,11 @@ class TokenMapping(nn.ModuleList):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self[0](x)
         layers = list(self)[1:]
+        # on a model axis each layer holds its output slice, biases too
+        # (JAX stacks them into one [n, out] leaf, cut like the kernel)
+        ax = layers[0].model_axis
+        if ax is not None:
+            x = copy_in(x, ax)
         kernel = torch.stack([m.weight for m in layers])   # [n, out, in]
         bias = torch.stack([m.bias for m in layers])        # [n, out]
         conv_precision(self.dtype)
@@ -132,6 +152,8 @@ class TokenMapping(nn.ModuleList):
                          (kernel * self.scale).to(self.dtype))
         y = y + (bias * self.lr_mul).to(y.dtype)[None]
         y = F.leaky_relu(y, 0.2) * _SQRT2
+        if ax is not None:
+            y = gather_out(y, ax)
         if self.n_map < self.n_tokens:
             y = F.pad(y, (0, 0, 0, self.n_tokens - self.n_map))
         return y
@@ -152,8 +174,12 @@ class EqualConv2d(nn.Module):
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
+        self.model_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ax = self.model_axis
+        if ax is not None:
+            x = copy_in(x, ax)
         conv_precision(self.dtype)
         w = (self.weight * self.scale).to(
             self.dtype, memory_format=torch.channels_last)
@@ -161,8 +187,9 @@ class EqualConv2d(nn.Module):
                      stride=self.stride, padding=self.padding)
         y = y.permute(0, 2, 3, 1).contiguous()
         if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        return y
+            b = self.bias if ax is None else slice_of(self.bias, ax)
+            y = y + b.to(y.dtype)
+        return y if ax is None else gather_out(y, ax)
 
 
 class Blur(nn.Module):
@@ -230,25 +257,34 @@ class ModulatedConv2d(nn.Module):
         self.blur_kernel = tuple(blur_kernel)
         self.dtype = dtype
         self.quantize = quantize
+        self.model_axis = None
 
     def forward(self, x: torch.Tensor, style: torch.Tensor,
                 fused_bias: torch.Tensor | None = None,
                 fused_act: bool = False) -> torch.Tensor:
         s = self.modulation(style)
+        ax = self.model_axis
+        if ax is not None:
+            # this rank's output channels: demodulation, bias, activation
+            # (and the up-conv's fused_blur4) on the slice, then gathered
+            x, s = copy_in(x, ax), copy_in(s, ax)
+            if fused_bias is not None:
+                fused_bias = slice_of(fused_bias, ax)
         if self.upsample:
-            return modulated_conv2d_up_fused(
+            out = modulated_conv2d_up_fused(
                 x.to(self.dtype), self.weight[0], s, bias=fused_bias,
                 activate=fused_act, demodulate=self.demodulate,
                 blur_kernel=self.blur_kernel, quantize=self.quantize)
-        out = modulated_conv2d(
-            x.to(self.dtype), self.weight[0], s, demodulate=self.demodulate,
-            downsample=self.downsample, blur_kernel=self.blur_kernel,
-            quantize=self.quantize)
-        if fused_act:
-            return fused_leaky_relu(out, fused_bias)
-        if fused_bias is not None:
-            out = out + fused_bias.to(out.dtype)
-        return out
+        else:
+            out = modulated_conv2d(
+                x.to(self.dtype), self.weight[0], s,
+                demodulate=self.demodulate, downsample=self.downsample,
+                blur_kernel=self.blur_kernel, quantize=self.quantize)
+            if fused_act:
+                out = fused_leaky_relu(out, fused_bias)
+            elif fused_bias is not None:
+                out = out + fused_bias.to(out.dtype)
+        return out if ax is None else gather_out(out, ax)
 
 
 class NoiseInjection(nn.Module):

@@ -21,15 +21,22 @@ microbatches, process r holds its contiguous 1/world of each global
 microbatch (``local_rows``), so a microbatch step over the processes is
 the one-process step on that global microbatch.
 
+Under a (data, model) mesh (``parallel/mesh.py``) the batch is split
+over the mesh's data axis, not over the world: each function takes the
+``mesh`` and then works over its data group, whose ranks hold
+different rows (the ranks of one model group hold the same rows).
+Without a mesh the data axis is the whole process group.
+
 Without a process group of more than one process
-(``multihost.multi_process``) every function here is the identity (or
-the local mean) and runs no collective.
+(``multihost.multi_process``), or on a mesh whose data axis is a single
+rank, every function here is the identity (or the local mean) and runs
+no collective.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import List
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,30 +49,52 @@ from transeditor_tpu_torch.parallel import multihost
 BUCKET_ELEMENTS = 1 << 24
 
 
-def all_reduce_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum of ``grads`` over processes (same order, shapes, dtypes).
+def data_axis(mesh=None) -> Tuple[int, int, Optional[object], bool]:
+    """(size, this rank's index, process group, whether its collectives
+    run) of the data axis: ``mesh``'s (``parallel/mesh.py::Mesh``), or
+    without one the whole process group (group ``None``: the world)."""
+    if mesh is None:
+        return (multihost.process_count(), multihost.process_index(), None,
+                multihost.multi_process())
+    return mesh.n_data, mesh.data_index, mesh.data_group, mesh.data_active
 
-    Gradients are packed into flat buckets of one dtype and device, each
-    all-reduced once, then unpacked into new tensors."""
-    if not multihost.multi_process():
-        return grads
+
+def buckets(tensors: Sequence[torch.Tensor],
+            indices: Optional[Iterable[int]] = None) -> List[List[int]]:
+    """The indices of ``tensors`` (all, or ``indices``) in buckets of one
+    device and dtype, each of at most ``BUCKET_ELEMENTS`` elements (or
+    one larger tensor), in order."""
     groups: dict = {}
-    for i, g in enumerate(grads):
-        groups.setdefault((g.device, g.dtype), []).append(i)
-    buckets = []
+    for i in range(len(tensors)) if indices is None else indices:
+        groups.setdefault((tensors[i].device, tensors[i].dtype),
+                          []).append(i)
+    out = []
     for idx in groups.values():
         bucket, size = [], 0
         for i in idx:
-            if bucket and size + grads[i].numel() > BUCKET_ELEMENTS:
-                buckets.append(bucket)
+            if bucket and size + tensors[i].numel() > BUCKET_ELEMENTS:
+                out.append(bucket)
                 bucket, size = [], 0
             bucket.append(i)
-            size += grads[i].numel()
-        buckets.append(bucket)
+            size += tensors[i].numel()
+        out.append(bucket)
+    return out
+
+
+def all_reduce_grads(grads: List[torch.Tensor],
+                     mesh=None) -> List[torch.Tensor]:
+    """The sum of ``grads`` over the data axis (same order, shapes,
+    dtypes).
+
+    Gradients are packed into flat buckets of one dtype and device, each
+    all-reduced once, then unpacked into new tensors."""
+    _, _, group, active = data_axis(mesh)
+    if not active:
+        return grads
     out = list(grads)
-    for bucket in buckets:
+    for bucket in buckets(grads):
         flat = torch.cat([grads[i].reshape(-1) for i in bucket])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         parts = flat.split([grads[i].numel() for i in bucket])
         for i, part in zip(bucket, parts):
             out[i] = part.view_as(grads[i])
@@ -82,38 +111,40 @@ def broadcast_module(module: torch.nn.Module) -> None:
             dist.broadcast(t.data, src=0)
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over processes, differentiable to any order: its
-    backward sums the incoming gradients over processes, so a loss
-    reaching the result on every process counts once per process.
-    Without a process group: ``x``."""
-    if not multihost.multi_process():
+def all_reduce_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum of ``x`` over the data axis, differentiable to any order:
+    its backward sums the incoming gradients over the axis, so a loss
+    reaching the result on every rank counts once per rank.  Without a
+    process group: ``x``."""
+    _, _, group, active = data_axis(mesh)
+    if not active:
         return x
-    return dist_fn.all_reduce(x)
+    return dist_fn.all_reduce(x, group=group or dist.group.WORLD)
 
 
-def global_mean(x: torch.Tensor) -> torch.Tensor:
-    """Mean of ``x`` over the global batch (every process holds the same
-    number of rows), differentiable; the local mean without a process
-    group."""
-    if not multihost.multi_process():
+def global_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Mean of ``x`` over the global batch (every data rank holds the
+    same number of rows), differentiable; the local mean without a
+    process group."""
+    n, _, _, active = data_axis(mesh)
+    if not active:
         return x.mean()
-    return all_reduce_sum(x.sum()) / (x.numel() * dist.get_world_size())
+    return all_reduce_sum(x.sum(), mesh) / (x.numel() * n)
 
 
-def local_rows(t: torch.Tensor, n_accum: int = 1) -> torch.Tensor:
-    """This process's rows of a global-batch tensor of ``n_accum``
-    microbatches: its contiguous 1/world of each microbatch, in order.
-    Process r's local microbatch k is then rows r*m .. r*m + m - 1 of
-    global microbatch k (m rows a process), the numbering the
+def local_rows(t: torch.Tensor, n_accum: int = 1, mesh=None) -> torch.Tensor:
+    """This data rank's rows of a global-batch tensor of ``n_accum``
+    microbatches: its contiguous 1/n of each microbatch, in order.
+    Data rank r's local microbatch k is then rows r*m .. r*m + m - 1 of
+    global microbatch k (m rows a rank), the numbering the
     discriminator's minibatch stddev uses.  For ``n_accum`` 1: rows
-    r*b .. r*b + b - 1.  Without a process group: ``t``."""
-    world = multihost.process_count()
-    if world == 1:
+    r*b .. r*b + b - 1.  With a data axis of one rank: ``t``."""
+    n, index, _, _ = data_axis(mesh)
+    if n == 1:
         return t
-    if t.shape[0] % (n_accum * world):
+    if t.shape[0] % (n_accum * n):
         raise ValueError(f"a global batch of {t.shape[0]} does not split "
-                         f"into {n_accum} microbatches over {world} "
-                         f"processes")
-    rows = t.reshape(n_accum, world, -1, *t.shape[1:])
-    return rows[:, multihost.process_index()].reshape(-1, *t.shape[1:])
+                         f"into {n_accum} microbatches over {n} "
+                         f"data ranks")
+    rows = t.reshape(n_accum, n, -1, *t.shape[1:])
+    return rows[:, index].reshape(-1, *t.shape[1:])

@@ -123,13 +123,15 @@ def is_main() -> bool:
     return process_index() == 0
 
 
-def local_batch_size(global_batch: int) -> int:
-    """This process's share of the global batch (each loads 1/world of
-    every global batch, as a DistributedSampler)."""
-    n = process_count()
+def local_batch_size(global_batch: int, mesh=None) -> int:
+    """This process's share of the global batch: 1/n of every global
+    batch over the ``n`` ranks of the data axis (``mesh``'s, else the
+    world's), as a DistributedSampler; the ranks of one model group load
+    the same rows."""
+    n = process_count() if mesh is None else mesh.n_data
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by "
-                         f"{n} processes")
+                         f"{n} data ranks")
     return global_batch // n
 
 

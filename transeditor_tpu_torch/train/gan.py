@@ -36,10 +36,12 @@ from transeditor_tpu_torch.config import ModelConfig, TrainConfig
 from transeditor_tpu_torch.device import resolve_device
 from transeditor_tpu_torch.models.discriminator import Discriminator
 from transeditor_tpu_torch.models.generator import Generator
-from transeditor_tpu_torch.parallel import multihost
 from transeditor_tpu_torch.parallel.data_parallel import (all_reduce_grads,
+                                                          data_axis,
                                                           global_mean,
                                                           local_rows)
+from transeditor_tpu_torch.parallel.mesh import (Mesh, ShardedParams,
+                                                 create_mesh)
 from transeditor_tpu_torch.train import losses
 from transeditor_tpu_torch.utils.sampling import sample_zp
 
@@ -54,6 +56,45 @@ class GANTrainState:
     opt_d: torch.optim.Adam
     mean_path_length: torch.Tensor              # float32 scalar on device
     mean_spatial_path_length: torch.Tensor
+    sharding: Optional["StateSharding"] = None  # set by shard_state
+
+
+@dataclasses.dataclass
+class StateSharding:
+    """The layout of a sharded train state: g_ema shares g's."""
+    mesh: Mesh
+    fsdp: bool
+    g: ShardedParams
+    d: ShardedParams
+    g_ema: ShardedParams
+
+
+def shard_state(state: GANTrainState, mesh: Mesh, fsdp: bool = False,
+                min_size: int = 256) -> GANTrainState:
+    """Shard ``state`` in place by ``param_partition_spec``: g, d and
+    g_ema, and the Adam moments with their parameters (JAX shards the
+    moments with ``fsdp=True`` whenever ``fsdp`` is on; with the model
+    axis alone they follow the parameters too).  Each rank then holds
+    only its block of every eligible tensor.  Returns the state."""
+    if state.sharding is not None:
+        raise ValueError("the state is sharded already")
+    sh = StateSharding(mesh, fsdp,
+                       *(ShardedParams(m, mesh, min_size, fsdp)
+                         for m in (state.g, state.d, state.g_ema)))
+    for layout, opt in ((sh.g, state.opt_g), (sh.d, state.opt_d),
+                        (sh.g_ema, None)):
+        if opt is not None:
+            layout.shard_optimizer_(opt)
+        layout.shard_()
+    state.sharding = sh
+    return state
+
+
+def needs_sharding(mesh: Optional[Mesh], fsdp: bool) -> bool:
+    """Whether a state on ``mesh`` is sharded: with ``fsdp`` on a data
+    axis of more than one rank, or on a model axis of more than one."""
+    return mesh is not None and ((fsdp and mesh.data_active)
+                                 or mesh.model_active)
 
 
 def make_optimizers(tcfg: TrainConfig, g: Generator, d: Discriminator):
@@ -90,9 +131,18 @@ def _grads(loss: torch.Tensor, params: list) -> list:
             for p, g in zip(params, got)]
 
 
-def _apply(opt: torch.optim.Optimizer, params: list, grads: list) -> None:
-    """Sum ``grads`` over processes and take one optimizer step."""
-    for p, g in zip(params, all_reduce_grads(grads)):
+def _apply(opt: torch.optim.Optimizer, params: list, grads: list,
+           mesh: Optional[Mesh] = None,
+           layout: Optional[ShardedParams] = None) -> None:
+    """Sum ``grads`` over the data axis and take one optimizer step; on a
+    sharded state, reduce them to this rank's blocks and step the blocks
+    (the gathered weights are released first)."""
+    if layout is not None:
+        grads = layout.reduce(grads)
+        layout.release_()
+    else:
+        grads = all_reduce_grads(grads, mesh)
+    for p, g in zip(params, grads):
         p.grad = g
     opt.step()
     for p in params:
@@ -128,7 +178,9 @@ def local_path_batch(global_batch: int, shrink: int, world: int) -> int:
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    device: str | torch.device | None = None) -> Callable:
+                    device: str | torch.device | None = None,
+                    mesh: Optional[Mesh] = None,
+                    fsdp: bool = False) -> Callable:
     """Build ``train_step(state, real, rng, do_d_reg=False,
     do_g_reg=False, do_spatial_reg=False, draws=None) -> (state,
     metrics)``.
@@ -157,17 +209,28 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     (``local_path_batch``); a ``ValueError`` is raised here, before any
     step, when they do not split evenly over the processes.
 
+    ``mesh``: the (data, model) mesh; the batch, the draws and the
+    global means are split over its data axis (without one, over the
+    process group).  With ``fsdp`` it defaults to ``create_mesh()``.
+    With ``fsdp`` (on a data axis of more than one rank) or a model axis
+    of more than one rank, the first call shards an unsharded state
+    (``shard_state``); between steps each rank holds its blocks.  At one
+    rank ``fsdp`` is the identity, as JAX's ``n_data > 1`` makes it.
+
     The process group, if any, is read when the step is built.
     """
     dev = resolve_device(device)
+    if mesh is None and fsdp:
+        mesh = create_mesh()
+    sharded = needs_sharding(mesh, fsdp)
     n_accum = max(1, int(tcfg.grad_accum))
-    world = multihost.process_count()
+    world = data_axis(mesh)[0]                # ranks of the data axis
     share = 1.0 / world                       # local share of a global mean
     local_path_batch(tcfg.batch_size, tcfg.path_batch_shrink, world)
 
     def latents(draws, phase, rng, batch, accum=n_accum):
         if draws is not None:
-            return tuple(local_rows(t, accum).to(dev)
+            return tuple(local_rows(t, accum, mesh).to(dev)
                          for t in draws[phase][:2])
         return sample_zp(rng, batch, cfg.n_tokens, cfg.style_dim)
 
@@ -175,7 +238,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         # the path batch is one pass, not cut into microbatches
         z, p = latents(draws, phase, rng, batch, accum=1)
         if draws is not None:
-            noise = local_rows(draws[phase][2]).to(dev)
+            noise = local_rows(draws[phase][2], mesh=mesh).to(dev)
         else:
             noise = losses.path_noise(rng, (batch, cfg.size, cfg.size, 3))
         return z, p, noise
@@ -199,10 +262,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         micro_b = batch // n_accum
         path_batch = local_path_batch(batch * world, tcfg.path_batch_shrink,
                                       world)
+        d.mesh = mesh
+        if sharded and state.sharding is None:
+            shard_state(state, mesh, fsdp)
+        sh = state.sharding
+        if sh is not None and (sh.mesh is not mesh or sh.fsdp != fsdp):
+            raise ValueError("the state is sharded for another mesh or "
+                             "fsdp setting than this step's")
+        lay_g, lay_d = (sh.g, sh.d) if sh is not None else (None, None)
+
+        def gather(layout):
+            # data axis gathered; the model axis stays cut: column-parallel
+            if layout is not None:
+                layout.gather_(column=True)
+
         metrics = {}
 
         # --- D step: fakes from the current g, no gradient into g
         zd, pd = latents(draws, "d", rng, batch)
+        gather(lay_g)
+        gather(lay_d)
 
         def d_phase(args):
             r, z, p = args
@@ -217,7 +296,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
         grads, m = _mean_over(d_phase, list(zip(chunk(real), chunk(zd),
                                                 chunk(pd))))
-        _apply(state.opt_d, params_d, grads)
+        _apply(state.opt_d, params_d, grads, mesh, lay_d)
         metrics.update(m)
 
         # --- lazy R1, weighted r1_gamma/2 * r1 * d_reg_every
@@ -228,8 +307,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 return _grads(weighted * share, params_d), {
                     "r1": r1.detach()}
 
+            gather(lay_d)
             grads, m = _mean_over(r1_phase, chunk(real))
-            _apply(state.opt_d, params_d, grads)
+            _apply(state.opt_d, params_d, grads, mesh, lay_d)
             metrics.update(m)
         else:
             metrics["r1"] = torch.zeros((), device=dev)
@@ -243,21 +323,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             loss = losses.g_nonsaturating_loss(d(fake).float())
             return _grads(loss * share, params_g), {"g": loss.detach()}
 
+        gather(lay_d)
         grads, m = _mean_over(g_phase, list(zip(chunk(zg), chunk(pg))))
-        _apply(state.opt_g, params_g, grads)
+        if lay_d is not None:
+            lay_d.release_()
+        _apply(state.opt_g, params_g, grads, mesh, lay_g)
         metrics.update(m)
 
         # --- lazy path length, on the stage API
         if do_g_reg:
+            gather(lay_g)
             z, p, noise = path_inputs(draws, "path", rng, path_batch)
             z_plus, p_plus = g.map_codes(z, p)
             latent = g.style_latents_from(g.interact_codes(z_plus, p_plus))
             penalty, state.mean_path_length, lengths = \
                 losses.path_length_penalty(
                     lambda lat: g.synthesize(p_plus, lat, rng=rng), latent,
-                    noise, state.mean_path_length)
+                    noise, state.mean_path_length, mesh=mesh)
             weighted = tcfg.path_regularize * tcfg.g_reg_every * penalty
-            _apply(state.opt_g, params_g, _grads(weighted * share, params_g))
+            _apply(state.opt_g, params_g, _grads(weighted * share, params_g),
+                   mesh, lay_g)
             metrics.update(path=penalty.detach(),
                            path_length=lengths.detach().mean())
         else:
@@ -266,6 +351,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
         # --- optional spatial path length in P or P+ (reference :252-285)
         if do_spatial_reg:
+            gather(lay_g)
             z, p, noise = path_inputs(draws, "spatial", rng, path_batch)
             if tcfg.regu_space == "p":
                 target = p.detach().requires_grad_(True)
@@ -280,12 +366,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             # .sum(2).mean(1) on its [B, 512, 16] layout
             lengths = torch.sqrt(grad.pow(2).sum(dim=1).mean(dim=-1))
             mean_spl = state.mean_spatial_path_length
-            path_mean = mean_spl + 0.01 * (global_mean(lengths) - mean_spl)
+            path_mean = mean_spl + 0.01 * (global_mean(lengths, mesh)
+                                           - mean_spl)
             # path_mean is not detached inside the penalty
             penalty = (lengths - path_mean).pow(2).mean()
             weighted = (tcfg.spatial_path_regularize * tcfg.g_reg_every
                         * penalty)
-            _apply(state.opt_g, params_g, _grads(weighted * share, params_g))
+            _apply(state.opt_g, params_g, _grads(weighted * share, params_g),
+                   mesh, lay_g)
             state.mean_spatial_path_length = path_mean.detach()
             metrics.update(spatial_path=penalty.detach(),
                            spatial_path_length=lengths.detach().mean())
@@ -293,7 +381,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             metrics.update(spatial_path=torch.zeros((), device=dev),
                            spatial_path_length=torch.zeros((), device=dev))
 
-        # --- EMA of g's parameters
+        # --- EMA of g's parameters (on the blocks of a sharded state)
         decay = tcfg.ema_decay
         with torch.no_grad():
             ema = list(state.g_ema.parameters())

@@ -30,11 +30,16 @@ import torch
 
 from transeditor_tpu_torch.config import ModelConfig, TrainConfig
 from transeditor_tpu_torch.device import resolve_device
-from transeditor_tpu_torch.io.checkpoint import save_train_state
+from transeditor_tpu_torch.io.checkpoint import (full_state_dicts,
+                                                 host_copy, save_train_state,
+                                                 wait_for_saves)
 from transeditor_tpu_torch.parallel import multihost
-from transeditor_tpu_torch.parallel.data_parallel import broadcast_module
+from transeditor_tpu_torch.parallel.data_parallel import (broadcast_module,
+                                                          data_axis)
+from transeditor_tpu_torch.parallel.mesh import Mesh, create_mesh
 from transeditor_tpu_torch.train.gan import (GANTrainState, init_state,
-                                             make_train_step)
+                                             make_train_step, needs_sharding,
+                                             shard_state)
 from transeditor_tpu_torch.utils.image import make_grid, save_png
 from transeditor_tpu_torch.utils.sampling import sample_zp
 
@@ -207,21 +212,30 @@ class DevicePrefetcher:
 
 
 def step_seed(seed: int, rank: int, step: int) -> int:
-    """The seed of rank ``rank``'s draws at step ``step``: they depend on
-    (seed, rank, step) alone, so a resumed run continues as the whole
-    run, and each process of a group draws its own latents and noise."""
+    """The seed of data rank ``rank``'s draws at step ``step``: they
+    depend on (seed, rank, step) alone, so a resumed run continues as the
+    whole run, each data rank draws its own latents and noise, and the
+    ranks of one model group draw the same."""
     return int(np.random.SeedSequence([seed, rank, step])
                .generate_state(1, np.uint64)[0])
 
 
-def _save(ckpt_dir: str, step: int, state: GANTrainState) -> None:
-    """Rank 0 writes the checkpoint of ``step``; every process waits for
-    it on both sides, so none reads or starts the next step against a
-    half-written file."""
-    multihost.synchronize()
-    if multihost.is_main():
-        save_train_state(ckpt_dir, step, state)
-    multihost.synchronize()
+def _save(ckpt_dir: str, step: int, state: GANTrainState,
+          async_save: bool = False) -> None:
+    """Rank 0 writes the checkpoint of ``step``; every rank calls this (a
+    sharded state is gathered first, a collective).  A synchronous save
+    waits for any save in flight first, and every process waits for it,
+    so none reads or exits against a half-written file; an async one
+    returns once rank 0 holds the state in host memory."""
+    rank0 = multihost.is_main()
+    if state.sharding is not None or rank0:
+        entries = full_state_dicts(state)
+        if rank0:
+            save_train_state(ckpt_dir, step, host_copy(entries),
+                             async_save=async_save)
+        del entries
+    if not async_save:
+        multihost.synchronize()
 
 
 def train(cfg: ModelConfig, tcfg: TrainConfig,
@@ -229,7 +243,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
           exp_name: str = "default", state: Optional[GANTrainState] = None,
           start_step: int = 0, max_steps: Optional[int] = None,
           prefetch: int = 2, device: str | torch.device | None = None,
-          log_every: int = 50, use_wandb: bool = False) -> GANTrainState:
+          log_every: int = 50, use_wandb: bool = False,
+          mesh: Optional[Mesh] = None, fsdp: bool = False) -> GANTrainState:
     """Train from ``start_step`` to ``tcfg.total_steps`` (or for
     ``max_steps``) on uint8 NHWC batches from ``data_iter``.
 
@@ -237,9 +252,11 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
     "cpu").  Writes ``<out_dir>/<exp_name>/log/metrics.jsonl`` (every
     ``log_every`` steps; each log waits for the step), ``sample/`` PNG
     grids from g_ema and ``checkpoint/<step>.pt``, every
-    ``checkpoint_every`` steps and after the last step.  Raises
-    ``StopIteration`` if the data runs out first.  On SIGTERM / SIGINT
-    it checkpoints the state after the step in flight and returns.
+    ``checkpoint_every`` steps (written in the background while the run
+    goes on) and after the last step.  Raises ``StopIteration`` if the
+    data runs out first.  On SIGTERM / SIGINT it checkpoints the state
+    after the step in flight and returns.  It returns only once every
+    checkpoint is written.
 
     Under a process group (``parallel/multihost.py``) ``data_iter``
     yields this process's share of each global batch; rank 0's modules
@@ -247,16 +264,30 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
     samples and checkpoints.  Logged values are means over processes,
     and ``data_wait_share`` is the share of the interval's wall time the
     loop spent waiting for its next batch.
+
+    ``mesh`` (``parallel/mesh.py``; with ``fsdp`` it defaults to
+    ``create_mesh()``): ``data_iter`` yields this data rank's share, and
+    the ranks of a model group read the same rows.  With ``fsdp``, or a
+    model axis of more than one rank, the state is sharded
+    (``train/gan.py::shard_state``) after rank 0's modules are copied to
+    every process; checkpoints gather it and keep the one-process
+    format.
     """
     dev = resolve_device(device)
     if state is None:
         state = init_state(cfg, tcfg, seed=tcfg.seed, device=dev)
-    for m in (state.g, state.d, state.g_ema):
-        broadcast_module(m)
-    step_fn = make_train_step(cfg, tcfg, device=dev)
+    if mesh is None and fsdp:
+        mesh = create_mesh()
+    if state.sharding is None:
+        for m in (state.g, state.d, state.g_ema):
+            broadcast_module(m)
+        if needs_sharding(mesh, fsdp):
+            shard_state(state, mesh, fsdp)
+    step_fn = make_train_step(cfg, tcfg, device=dev, mesh=mesh, fsdp=fsdp)
     rng = torch.Generator(dev)
-    rank, world = multihost.process_index(), multihost.process_count()
+    world, rank, _, _ = data_axis(mesh)
     rank0 = multihost.is_main()
+    ema_layout = state.sharding.g_ema if state.sharding else None
 
     run_dir = os.path.join(out_dir, exp_name)
     sample_dir = os.path.join(run_dir, "sample")
@@ -298,29 +329,45 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
                     if rank0:
                         logger.log(i, values)
                     t0, imgs_seen, waited = time.perf_counter(), 0, 0.0
-                if rank0 and i % tcfg.sample_every == 0:
-                    with torch.no_grad():
-                        img = state.g_ema(sample_z, sample_p).image
-                    grid = make_grid(img.float().cpu().numpy(),
-                                     nrow=max(1, int(tcfg.n_sample ** 0.5)))
-                    save_png(os.path.join(sample_dir, f"{i:06d}.png"), grid)
+                if i % tcfg.sample_every == 0 and (rank0 or ema_layout is not None):
+                    if ema_layout is not None:
+                        ema_layout.gather_()         # every rank
+                    if rank0:
+                        with torch.no_grad():
+                            img = state.g_ema(sample_z, sample_p).image
+                        grid = make_grid(img.float().cpu().numpy(),
+                                         nrow=max(1, int(tcfg.n_sample
+                                                         ** 0.5)))
+                        save_png(os.path.join(sample_dir, f"{i:06d}.png"),
+                                 grid)
+                    if ema_layout is not None:
+                        ema_layout.release_()
                 saved = i % tcfg.checkpoint_every == 0
                 if saved:
-                    _save(ckpt_dir, i, state)
+                    # written in the background while the run goes on
+                    _save(ckpt_dir, i, state, async_save=True)
                 # every process breaks at the same step (see any_flag)
                 if multihost.any_flag(stop.requested):
                     # checkpoint i is the state after step i: a resume
-                    # starts at i + 1 with at most this step's work redone
+                    # starts at i + 1 with at most this step's work
+                    # redone; written whole before the process leaves
+                    wait_for_saves()
                     if not saved:
                         _save(ckpt_dir, i, state)
+                    else:
+                        multihost.synchronize()
                     if rank0:
                         print(f"[{i}] shutdown signal: checkpointed the "
                               f"state after step {i}", flush=True)
                     return state
             if i >= start_step and i % tcfg.checkpoint_every:
                 _save(ckpt_dir, i, state)        # the state after the run
+            else:
+                wait_for_saves()
+                multihost.synchronize()
     finally:
         if fetcher is not None:
             fetcher.close()
         logger.close()
+        wait_for_saves()
     return state

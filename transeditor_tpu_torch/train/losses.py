@@ -41,22 +41,22 @@ def r1_penalty(d, real_img: torch.Tensor) -> torch.Tensor:
 def path_length_penalty(synth_fn, latent: torch.Tensor,
                         noise_img: torch.Tensor,
                         mean_path_length: torch.Tensor,
-                        decay: float = 0.01):
+                        decay: float = 0.01, mesh=None):
     """Perceptual path-length regulariser.
 
     latent: [B, n_latent, D] per-layer styles (in the graph of the
     parameters, or a leaf that requires grad); synth_fn(latent) -> image.
     Returns (penalty, new mean detached, path_lengths).  The running mean
     inside the penalty is not detached, as in the reference; its batch
-    mean is over the global batch under a process group, the penalty's
-    over this process's rows.
+    mean is over the global batch of the data axis (``mesh``'s, else
+    the process group's), the penalty's over this process's rows.
     """
     img = synth_fn(latent).float()
     grad, = torch.autograd.grad((img * noise_img).sum(), latent,
                                 create_graph=True)
     grad = grad.float()
     path_lengths = torch.sqrt(grad.pow(2).sum(dim=2).mean(dim=1))
-    path_mean = mean_path_length + decay * (global_mean(path_lengths)
+    path_mean = mean_path_length + decay * (global_mean(path_lengths, mesh)
                                             - mean_path_length)
     penalty = (path_lengths - path_mean).pow(2).mean()
     return penalty, path_mean.detach(), path_lengths

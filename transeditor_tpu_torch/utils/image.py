@@ -128,6 +128,11 @@ def _native() -> ctypes.CDLL:
             lib.teimg_resample.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_long] * 4,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+            for name in ("teimg_bmp_info", "teimg_bmp_decode"):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_long
+                fn.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                               ctypes.c_void_p]
             _lib = lib
         return _lib
 
@@ -189,10 +194,44 @@ def load_png(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
+# teimg_bmp_* error codes (csrc/image_io.cpp, BmpError)
+_BMP_ERRORS = {
+    1: "not a BMP, or its header is cut short",
+    2: "a BMP info header of a size this reader does not know",
+    3: "compressed BMP (compression {3}: RLE or another) is not read; "
+       "only BI_RGB and BI_BITFIELDS",
+    4: "BMP of {2} bits a pixel at compression {3} is not read",
+    5: "BMP pixel rows or palette run past the end of the file",
+    6: "BMP of {0}x{1} pixels",
+}
+
+
+def load_bmp(path: str) -> np.ndarray:
+    """Read an uncompressed BMP as [H, W, 3] uint8 RGB (as PIL's
+    ``convert("RGB")``): BI_RGB at 1, 4 and 8 bits (palette), 16 (5-5-5),
+    24 and 32 bits, and BI_BITFIELDS at 16 and 32 bits, stored
+    bottom-up or top-down (``csrc/image_io.cpp``).  RLE or any other
+    compression raises ``ValueError`` naming the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    info = np.zeros(4, np.int64)
+    rc = _native().teimg_bmp_info(data, len(data), _ptr(info))
+    if rc:
+        raise ValueError(f"{path}: " + _BMP_ERRORS.get(
+            rc, "unreadable BMP").format(*info.tolist()))
+    w, h = int(info[0]), int(info[1])
+    out = np.empty((h, w, 3), np.uint8)
+    rc = _native().teimg_bmp_decode(data, len(data), _ptr(out))
+    if rc:
+        raise ValueError(f"{path}: " + _BMP_ERRORS.get(
+            rc, "unreadable BMP").format(*info.tolist()))
+    return out
+
+
 def load_image(path: str) -> np.ndarray:
-    """A PNG or JPEG file as [H, W, 3] uint8 RGB, by its leading bytes.
-    JPEG goes through the native runtime (libjpeg); any other format
-    raises ``ValueError`` naming the file."""
+    """A PNG, JPEG or BMP file as [H, W, 3] uint8 RGB, by its leading
+    bytes.  JPEG goes through the native runtime (libjpeg); any other
+    format raises ``ValueError`` naming the file."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head == PNG_SIGNATURE:
@@ -201,7 +240,10 @@ def load_image(path: str) -> np.ndarray:
         from transeditor_tpu_torch.data.native import decode_jpeg
         with open(path, "rb") as f:
             return decode_jpeg(f.read())
-    raise ValueError(f"{path}: only PNG and JPEG images are read")
+    if head[:2] == b"BM":
+        return load_bmp(path)
+    raise ValueError(f"{path}: only PNG and JPEG images and uncompressed "
+                     f"BMPs are read")
 
 
 # PIL's fixed-point resampling (Pillow's Resample.c, 8 bits a channel)
