@@ -66,18 +66,17 @@ torch.profiler (the order is at the end of this list).
      moments, beta1 = 0, and the root of the second moments) within 1e-4
      of each tensor's largest magnitude.
   6. the command-line training path (a main path, counted), in
-     build/smoke, removed at the end.  Whether libjpeg is on the machine
-     decides the data: with it, the JPEG / LMDB path; without it, that
-     path cannot be built (native/teio.cpp needs libjpeg), an earlier
-     line says so, and the PNG folder is read instead.
+     build/smoke, removed at the end, on the JPEG / LMDB data path: the
+     port's own codec (``csrc/jpeg.cpp``) and LMDB runtime
+     (``csrc/teio.cpp``), built with g++ alone (no image library).
   6a. data: 64 seeded 256px images (and 16 at 1024px) written as PNG
-     with adaptively filtered rows, as libpng and PIL write them; with
-     libjpeg, teio built with g++ (seconds printed), ``cli.prepare_data``
-     to an LMDB, every record against its source (PSNR >= 40 dB) and the
-     ``NativeLMDBLoader``'s img/s (cpu_count - 1 workers); always the PNG
-     folder iterator's img/s (cpu_count - 1 reader threads), at 256px and
-     from the 1024px sources resized on read; batch 16;
-  6b. ``cli.train_gan.main`` in this process on that data at full width
+     with adaptively filtered rows, as libpng and PIL write them; teio
+     built with g++ (seconds printed), ``cli.prepare_data`` to an LMDB
+     of JPEGs, every record against its source (PSNR >= 40 dB), the
+     ``NativeLMDBLoader``'s img/s with 1 and cpu_count - 1 workers; the
+     PNG folder iterator's img/s (cpu_count - 1 reader threads), at
+     256px and from the 1024px sources resized on read; batch 16;
+  6b. ``cli.train_gan.main`` in this process on that LMDB at full width
      (f32, batch 16, R1 every 2, path length every 3) for steps 0-3,
      then ``--resume`` to step 6: the log continues at 4, every metric
      finite, launches by role and path all on the TMA path; ms per step
@@ -88,8 +87,18 @@ torch.profiler (the order is at the end of this list).
      without a process group (Adam moments within 1e-5 of each tensor's
      largest); the all-reduce's ms per step;
   6d. ``engine_from_checkpoint(state_dir=...)`` on 6b's state (equal to
-     its g_ema) and an HTTP ``POST /sample`` (``jpeg_b64`` with libjpeg,
-     PSNR >= 35 dB against the array answer), counted.
+     its g_ema) and an HTTP ``POST /sample`` (``jpeg_b64``, PSNR >= 35 dB
+     against the array answer), counted;
+  6e. the codec held to libjpeg-turbo without libjpeg: SHA-256 digests,
+     computed with libjpeg-turbo 2.1.5 and committed here, of the
+     encoder's bytes (seeded images at qualities 1, 50, 95 and 100, two
+     odd sizes) and of the pixels libjpeg decodes from five small JPEGs
+     PIL wrote (progressive with optimised tables, 4:4:4, 4:2:2,
+     grayscale, restart markers every 2 MCUs), embedded below; every
+     digest must match.  Then, single-threaded, the µs to decode one
+     image at 256px and at 1024px and to encode one at 256px, printed
+     with 6a's loader rates, prepare_data's seconds and 6b's data-wait
+     share, beside the card's name and power limit.
 
   7. inversion (``invert/projector.py``, ``cli/project.py``):
   7a. the projector at full width (the main path, counted): the 256px
@@ -270,7 +279,7 @@ torch.profiler (the order is at the end of this list).
      mesh=)`` equal to no mesh; 13d the full-width train state saved
      synchronously and in the background (seconds, the loop's blocked
      seconds, files equal); 13e a BMP folder through the folder source
-     (and ``cli.prepare_data`` where libjpeg is present); 13f cuDNN's
+     and ``cli.prepare_data``; 13f cuDNN's
      time for the 128px stage's conv whole and as a model rank's half
      at the path batch.
 
@@ -297,7 +306,6 @@ import socket
 import struct
 import subprocess
 import sys
-import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1125,18 +1133,6 @@ LOADER_BATCHES, LOADER_WARM = 20, 2
 SOURCE_BATCHES, SOURCE_WARM = 3, 1
 
 
-def libjpeg_present() -> bool:
-    """Whether ``native/teio.cpp`` can be built here: g++ compiles and
-    links a file that includes ``jpeglib.h`` with ``-ljpeg``."""
-    src = "#include <cstdio>\n#include <jpeglib.h>\nint main() { " \
-          "jpeg_compress_struct c; jpeg_std_error(nullptr); (void)c; }\n"
-    with tempfile.TemporaryDirectory() as d:
-        proc = subprocess.run(["g++", "-x", "c++", "-", "-o",
-                               os.path.join(d, "probe"), "-ljpeg"],
-                              input=src, capture_output=True, text=True)
-    return proc.returncode == 0
-
-
 def smooth_images(n: int, size: int, seed: int = 0) -> np.ndarray:
     """Seeded smooth RGB images away from 0 and 255 (JPEG at quality 95
     keeps them ~45 dB from the source)."""
@@ -1191,15 +1187,17 @@ def loader_rate(loader, batch: int, size: int, batches: int,
     return batches * batch / dt
 
 
-def data_phase(root: pathlib.Path, size: int, batch: int,
-               with_jpeg: bool) -> dict:
+def data_phase(root: pathlib.Path, size: int, batch: int) -> dict:
     """6a: the dataset.  Seeded PNGs, their rows filtered as libpng and
     PIL filter them (``save_png``'s adaptive choice), so the reader
-    unfilters every row as it would a real dataset's.  With libjpeg:
-    ``cli.prepare_data`` -> LMDB, every record held against its source
-    (PSNR >= 40 dB), and the native loader's img/s.  Always: the PNG
+    unfilters every row as it would a real dataset's;
+    ``cli.prepare_data`` -> LMDB of JPEGs (the port's own codec), every
+    record held against its source (PSNR >= 40 dB), and the native
+    loader's img/s with one worker and with cpu_count - 1; the PNG
     folder iterator's img/s (cpu_count - 1 reader threads), at 256px
     and from 1024px sources (FFHQ's size) resized on read."""
+    from transeditor_tpu_torch.cli import prepare_data
+    from transeditor_tpu_torch.data import native
     from transeditor_tpu_torch.data.dataset import (ImageFolderSource,
                                                     make_train_iterator)
     from transeditor_tpu_torch.utils.image import save_png
@@ -1221,45 +1219,42 @@ def data_phase(root: pathlib.Path, size: int, batch: int,
           f"{out['row_filters']} in the {N_IMAGES} {size}px files, "
           f"{out['row_filters_1024']} in the {N_SOURCE} {SOURCE_SIZE}px",
           flush=True)
-    if with_jpeg:
-        from transeditor_tpu_torch.cli import prepare_data
-        from transeditor_tpu_torch.data import native
-
-        t0 = time.time()
-        native.load_library()
-        out["teio_build_s"] = time.time() - t0
-        print(f"built {native.library_path().name} with g++ in "
-              f"{out['teio_build_s']:.1f} s", flush=True)
-        lmdb = root / "lmdb"
-        t0 = time.time()
-        n = prepare_data.main(["--in_dir", str(pngs), "--out", str(lmdb),
-                               "--size", str(size)])
-        out["prepare_s"] = time.time() - t0
-        check(n == N_IMAGES, f"prepare_data wrote {n} images")
-        src = native.NativeLMDBSource(str(lmdb))
-        check(len(src) == N_IMAGES, f"LMDB length {len(src)}")
-        out["worst_psnr_db"] = min(psnr(src.get(i, size), imgs[i])
-                                   for i in range(N_IMAGES))
-        src.db.close()
-        check(out["worst_psnr_db"] >= 40.0,
-              f"LMDB record vs source: {out['worst_psnr_db']:.2f} dB")
-        out["lmdb_img_per_s"] = loader_rate(
+    t0 = time.time()
+    native.load_library()
+    out["teio_build_s"] = time.time() - t0
+    print(f"built {native.library_path().name} (csrc/teio.cpp, "
+          f"csrc/jpeg.cpp) with g++ in {out['teio_build_s']:.1f} s",
+          flush=True)
+    lmdb = root / "lmdb"
+    t0 = time.time()
+    n = prepare_data.main(["--in_dir", str(pngs), "--out", str(lmdb),
+                           "--size", str(size)])
+    out["prepare_s"] = time.time() - t0
+    check(n == N_IMAGES, f"prepare_data wrote {n} images")
+    src = native.NativeLMDBSource(str(lmdb))
+    check(len(src) == N_IMAGES, f"LMDB length {len(src)}")
+    out["worst_psnr_db"] = min(psnr(src.get(i, size), imgs[i])
+                               for i in range(N_IMAGES))
+    src.db.close()
+    check(out["worst_psnr_db"] >= 40.0,
+          f"LMDB record vs source: {out['worst_psnr_db']:.2f} dB")
+    for key, n_workers in (("lmdb_1_img_per_s", 1),
+                           ("lmdb_img_per_s", workers)):
+        out[key] = loader_rate(
             native.NativeLMDBLoader(str(lmdb), batch, size, as_uint8=True,
-                                    workers=workers),
+                                    workers=n_workers),
             batch, size, LOADER_BATCHES, LOADER_WARM)
-        print(f"data: prepare_data {out['prepare_s']:.2f} s, records vs "
-              f"source worst {out['worst_psnr_db']:.2f} dB (limit 40); "
-              f"NativeLMDBLoader, {workers} workers: "
-              f"{out['lmdb_img_per_s']:.1f} img/s at batch {batch}",
-              flush=True)
-        out["path"], out["data"] = str(lmdb), "lmdb"
-    else:
-        out["path"], out["data"] = str(pngs), "png_folder"
+    print(f"data: prepare_data {out['prepare_s']:.2f} s, records vs "
+          f"source worst {out['worst_psnr_db']:.2f} dB (limit 40); "
+          f"NativeLMDBLoader: 1 worker {out['lmdb_1_img_per_s']:.1f} "
+          f"img/s, {workers} workers {out['lmdb_img_per_s']:.1f} img/s at "
+          f"batch {batch}", flush=True)
+    out["path"], out["data"] = str(lmdb), "lmdb"
 
     t0 = time.time()
     ImageFolderSource(str(pngs)).get(0, size)      # builds image_io
     out["image_io_build_s"] = time.time() - t0
-    for key, folder, batches, warm, src in (
+    for key, folder, batches, warm, what in (
             ("folder_img_per_s", pngs, LOADER_BATCHES, LOADER_WARM,
              f"{size}px"),
             ("folder_1024_img_per_s", big, SOURCE_BATCHES, SOURCE_WARM,
@@ -1268,12 +1263,10 @@ def data_phase(root: pathlib.Path, size: int, batch: int,
             make_train_iterator(ImageFolderSource(str(folder)), batch, size,
                                 normalize=False),
             batch, size, batches, warm)
-        print(f"data: make_train_iterator over ImageFolderSource ({src} "
+        print(f"data: make_train_iterator over ImageFolderSource ({what} "
               f"PNGs), {workers} reader threads: {out[key]:.1f} img/s at "
               f"batch {batch} over {batches} batches after {warm}",
               flush=True)
-    out["loader_img_per_s"] = out.get("lmdb_img_per_s",
-                                      out["folder_img_per_s"])
     return out
 
 
@@ -1494,12 +1487,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def serve_state_phase(fb, dev, state_dir: str, with_jpeg: bool,
-                      **cfg_kw) -> dict:
+def serve_state_phase(fb, dev, state_dir: str, **cfg_kw) -> dict:
     """6d: ``engine_from_checkpoint(state_dir=...)`` on 6b's state: its
-    generator equals that state's g_ema; then HTTP ``POST /sample`` (with
-    ``"format": "jpeg_b64"`` where libjpeg exists, held against the
-    array answer for the same codes at 35 dB), counted."""
+    generator equals that state's g_ema; then HTTP ``POST /sample`` with
+    ``"format": "jpeg_b64"`` (the port's JPEG encoder), held against the
+    array answer for the same codes at 35 dB, counted."""
     import base64
     import http.client
     from transeditor_tpu_torch.config import ModelConfig
@@ -1549,8 +1541,7 @@ def serve_state_phase(fb, dev, state_dir: str, with_jpeg: bool,
         conn = http.client.HTTPConnection("127.0.0.1",
                                           server.server_address[1],
                                           timeout=120)
-        req = {"n": 2, **({"format": "jpeg_b64", "quality": 95}
-                          if with_jpeg else {})}
+        req = {"n": 2, "format": "jpeg_b64", "quality": 95}
         conn.request("POST", "/sample", json.dumps(req))
         resp = conn.getresponse()
         out = json.loads(resp.read())
@@ -1572,26 +1563,234 @@ def serve_state_phase(fb, dev, state_dir: str, with_jpeg: bool,
           f"serve-state launches by path {paths}")
     res = {"step": step, "engine_vs_state_max_abs": diff,
            "engine_vs_itself_max_abs": again, "launches": paths}
-    if with_jpeg:
-        from transeditor_tpu_torch.data.native import decode_jpeg
-        imgs = [decode_jpeg(base64.b64decode(b)) for b in out["images"]]
-        res["jpeg_psnr_db"] = min(psnr(a, b) for a, b in zip(imgs, arrays))
-        check(res["jpeg_psnr_db"] >= 35.0,
-              f"jpeg_b64 vs array answer {res['jpeg_psnr_db']:.2f} dB")
-        what = (f"POST /sample jpeg_b64 vs the array answer for its codes: "
-                f"worst {res['jpeg_psnr_db']:.2f} dB (limit 35)")
-    else:
-        sampled = np.asarray(out["images"], np.uint8)
-        mean = np.abs(sampled.astype(int) - arrays.astype(int)).mean()
-        check(mean < 1.0, f"sample vs decode of its codes: {mean}")
-        what = ("POST /sample (arrays; jpeg_b64 not run: no libjpeg here) "
-                f"vs decode of its codes: mean diff {mean:.4f} levels")
+    from transeditor_tpu_torch.data.native import decode_jpeg
+    imgs = [decode_jpeg(base64.b64decode(b)) for b in out["images"]]
+    res["jpeg_psnr_db"] = min(psnr(a, b) for a, b in zip(imgs, arrays))
+    check(res["jpeg_psnr_db"] >= 35.0,
+          f"jpeg_b64 vs array answer {res['jpeg_psnr_db']:.2f} dB")
+    what = (f"POST /sample jpeg_b64 vs the array answer for its codes: "
+            f"worst {res['jpeg_psnr_db']:.2f} dB (limit 35)")
     print(f"serve from train state: step {step}, weights equal to the "
           f"state's g_ema, forward vs a module holding them (cuDNN "
           f"deterministic) max abs {diff:.2e} (limit 1e-6); {what}; "
           f"fused_blur4 launches {paths}",
           flush=True)
     return res
+
+
+# ---------------------------------------------------------------- 6e
+
+def seeded_rgb(h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded [h, w, 3] uint8 image made from integers alone (sawtooth
+    ramps plus noise), so every machine and numpy makes the same one."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    fx, fy = rng.randint(1, 9, 3), rng.randint(1, 9, 3)
+    img = np.stack([(x * fx[c] + y * fy[c]) % 256 for c in range(3)], -1)
+    return np.clip(img + rng.randint(-24, 25, (h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
+# SHA-256 of libjpeg-turbo 2.1.5's bytes for encode_jpeg(seeded_rgb(h, w,
+# seed=h * w), quality): jpeg_set_defaults + jpeg_set_quality(q, TRUE),
+# through the JAX package's native binding (tests/test_torch_port_jpeg.py
+# recomputes them).
+CODEC_ENCODE_SHA256 = {
+    "37x53-q1":
+        "a4e3254cd1e564d5986461a7bdf4d86de73af39bbfc44328f2f9d285a3626392",
+    "37x53-q50":
+        "4d758141859587623d9656266b825ab04c6e1a3976f1221924b76d00d51bad1f",
+    "37x53-q95":
+        "3308e04547b120eb9d5b7b411b414f6459f9aa283eacb925a21bb587189763d9",
+    "37x53-q100":
+        "c01ae4fc501ac9519ac1c20f3905b7aa5a795c49aa42b7fe7b55607405fb4a37",
+    "131x250-q1":
+        "bf4323d7cbbd0864fecbbb00f190c4b1e6ad96279e39ec212801b4d6a11731e0",
+    "131x250-q50":
+        "4b32ffde7963d2e2b4ab8c58505ce19ff56e43688b45ce15d6900762c4aa2212",
+    "131x250-q95":
+        "1b451b76234a9f24acc2c0eeaaf30007fa5a2fa5cb55bf90038b8e93566bc66c",
+    "131x250-q100":
+        "ea53b661404bd0424e652395703e20572ba2d7b31d960b16d193117788bed461",
+}
+
+# Small JPEGs written by PIL from seeded_rgb(23, 29, seed=i) at quality 85,
+# and the SHA-256 of the RGB pixels libjpeg-turbo 2.1.5 decodes from each
+# (the JAX binding's decode_jpeg).
+CODEC_DECODE = {
+    "progressive-optimized": (29, 23, (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8L"
+        "CwkMEQ8SEhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBweHx7/2wBDAQUF"
+        "BQcGBw4ICA4eFBEUHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4e"
+        "Hh4eHh4eHh4eHh4eHh7/wgARCAAXAB0DASIAAhEBAxEB/8QAFwAAAwEAAAAAAAAA"
+        "AAAAAAAAAAUGB//EABkBAAIDAQAAAAAAAAAAAAAAAAAFAgMEBv/aAAwDAQACEAMQ"
+        "AAABzOtUVYub1CqWuilrgMTbPgbdP//EAB0QAAICAgMBAAAAAAAAAAAAAAIEAAMB"
+        "EQUTIhT/2gAIAQEAAQUCVCK16ioyqvytXFA1FQzOcu+htXHlQdYcuyokHWIf/8QA"
+        "HREAAQQCAwAAAAAAAAAAAAAAAwABAgQGERJRsf/aAAgBAwEBPwEplTryul4RfSnJ"
+        "Y6JnFvt/F//EABwRAAICAgMAAAAAAAAAAAAAAAECAAQDEQUSIv/aAAgBAgEBPwFh"
+        "KdI2snWMo1MWU1ONewg9bn//xAAjEAABAwIFBQAAAAAAAAAAAAAAAQIxISIDEBIT"
+        "MkFRYXGB/9oACAEBAAY/AoyShAk+CBOxtt44Nv3qIUHPTmtrfYmo/8QAHxAAAgMA"
+        "AgIDAAAAAAAAAAAAAREAITFBgWFxUbHB/9oACAEBAAE/IbvgdZiACr6lBAAHBBwz"
+        "8E/s6DQjALi4QMYPqMkXa3kx+OpiLbl5RjkwpWHv8531KVB4BTn/2gAMAwEAAgAD"
+        "AAAAEM7AnP/EAB0RAAICAQUAAAAAAAAAAAAAAAERACHwMUFhoeH/2gAIAQMBAT8Q"
+        "Y7lJgBkpoeldmGJWVNriZka0rOTP/8QAHBEBAAIDAAMAAAAAAAAAAAAAAQARITFB"
+        "UWGB/9oACAECAQE/EK4sLQCrV18x335eSwgpmjethxHFvdz/xAAkEAEBAAIBAwMF"
+        "AQAAAAAAAAABESExAFGBkUFxsWGhweHw8f/aAAgBAQABPxCmI0YDS730cduTTYaO"
+        "py59rqXrw5mRvDYJqJrBdY1w1hoqE+3y5FtW6O+E6SMP2oeBgK6kPx5xwqFqEb0e"
+        "PnzwblBq2+YDKm45eMqhjBn0PoXEf84pEUyzqr3/AL2hETJsLFUYLmRw9eBWxlOg"
+        "B7b5/9k="
+    ), "16ad68a93021c61dec03b0cbd2321faca0f6dad4bcb262786666179a3c873a22"),
+    "444": (29, 23, (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8L"
+        "CwkMEQ8SEhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBweHx7/2wBDAQUF"
+        "BQcGBw4ICA4eFBEUHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4e"
+        "Hh4eHh4eHh4eHh4eHh7/wAARCAAXAB0DAREAAhEBAxEB/8QAHwAAAQUBAQEBAQEA"
+        "AAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIh"
+        "MUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6"
+        "Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZ"
+        "mqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx"
+        "8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREA"
+        "AgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAV"
+        "YnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hp"
+        "anN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPE"
+        "xcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwD5"
+        "q0PQMTD5WIY4YZ4HPHI4/wA/WudYi9+bRr+v639Tkp4tNr+u/wDX5bndaNo0Uil2"
+        "jLkcOu3nOf5Y/H8a09pZWjp+Xr9/9duuji5Odlpp0+f9fJHf+H9HBcFkbO8c7cY6"
+        "8Hnnrx9ac6yt6f1p9yOqOKbdr7q36Pb1/wCAdvp+mxGANLERlRgDB5785HHSkq9N"
+        "/E/6/E7KeK52+S7/AK/r/I8T0DSwJFHl7iAdgVee3oeT05rxnXsry28/67+f4n5p"
+        "HEy0Sau+v/D2/rTU7fQtGmhRWCKFbnLJgkY9+fwPf61Xt+bf00u/67aPbzWnorFp"
+        "bO3l929u3+Z6FoejvN5LhcqD94/NjjtkZ/z9DWcKkk3BO/4f8D/gdzqp4vdT1v8A"
+        "1/Xludtp+jKYiZbdZAMBVcDKkcE4z3rWNaU1Za/8E76eLuvcV/W7/S54bo+mRR7C"
+        "6KcqUB+hwfx/TivCdV309dPT+n5fgfmUMSpPlWlt/wA/8jvtD0uNgEQKFB4zk4zz"
+        "nn+XT61bqShaT2/4B2xxkoyb/wAu9v1S/wCGNXxH4g8PeCbO2n155GlmLCGG3iLS"
+        "S4IDYPCjG4E7mHQ4zXsZTlmLzebWG6LXWy1vbzto+l9rn0uTZXjc4m6WGSSjbmb0"
+        "SvdrRXetnsn52OEu/ix4y1NlfQTBo1uoB2oiTu/b5mkBHBDEbQPvc5r9Cw3C+W4R"
+        "NYle0b7tpJ9bKPe6vdu7P2XLeCctw1H/AGjmqyfX4Vp2Sf5t7aWP/9k="
+    ), "3cf5a95c708d0eba266d5947eae60b94fff9f8468bf4c96be3b661a676720060"),
+    "422": (29, 23, (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8L"
+        "CwkMEQ8SEhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBweHx7/2wBDAQUF"
+        "BQcGBw4ICA4eFBEUHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4e"
+        "Hh4eHh4eHh4eHh4eHh7/wAARCAAXAB0DASEAAhEBAxEB/8QAHwAAAQUBAQEBAQEA"
+        "AAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIh"
+        "MUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6"
+        "Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZ"
+        "mqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx"
+        "8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREA"
+        "AgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAV"
+        "YnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hp"
+        "anN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPE"
+        "xcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwD5"
+        "v8OaYfMjZBggDIB6nH5dM16T4a0h45FRgArOBnGQR1wPy9vxpc6b13PiM4xibaue"
+        "jaDo2+RYzGzLwqZHykdjwP0Pr+FWvFPjvwx4QuINM1S3u9QvDGHkiskVjb5AID7i"
+        "ACQcgDJxjIAIz7GV4CtmOJVGiknZ6u9rLe9k35bb2PgFhMTm2L+r4Wzlq3fZJd7X"
+        "8lt1PItA0feFjjTDvkEfwrznoRnOBmvSfDGkpmMuuCyAHcmcdee3UeteJ7SXLy9v"
+        "6/r/ADPdznFe612LvjTxXZeCdJSDbFc6zdKRaWm7oc8PIQRhR0wMFiCB/ER4o1tN"
+        "fXU+oamUe4upDNIxkCBnYlmIA4GSSccfQV+o8FZe6OHliWnepsvJf5/kvM9PhHA+"
+        "ww08ZUdnU2/wpv8AN/glbc9R8L6buiXaQG3Y3DjoM9OnTNdPrup2Pg3w+dWvo2nY"
+        "v5VvEpy002OFLYwBjJJI6DucCvy7BUXicRCjF6ydv+Dv03PlcVTqYvFrDQdnJpf5"
+        "/d97PEZZr7xBrt7rmobDczlS3lqEWMBNqhRnoFwM5J47kk11ul2i2lsMmNQ2MNk5"
+        "OAODgds1+3YvG4XJsF7WtLlpU1FN2bstEuje7XRn6LiZQw1KGHop2ikl6RSXl0P/"
+        "2Q=="
+    ), "a7edade00c54442b7b5ed6d8dfc5cb5aa275011f6b668a843d0bbe0de7c8af3f"),
+    "gray": (29, 23, (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8L"
+        "CwkMEQ8SEhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBweHx7/wAALCAAX"
+        "AB0BAREA/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgED"
+        "AwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2Jy"
+        "ggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1"
+        "dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJ"
+        "ytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/9oACAEBAAA/APkOJN8m3bhD"
+        "8pfAbA7HryRyMjoOnrVzmeOG2YuHlJ6sSR2I+vXI5498YkiVnVpNm5CQpCjrkngZ"
+        "HI555zyD7DSnHzCPfcZHzfJGzDnt2wBjH4Hoc1g2atHKBORmPPO7cECjqQMkchfQ"
+        "GtOyt2LrGqDfvy4CAKFBOFHfqCMnHXB7VatrVWfyhES6KySMz/KOme2T8w/Mkg5y"
+        "RpwxNIg2vPvUbXZJHGTk9cKee+DjGRxXOwmKRlnKmSJGKAxkjdgbioB6Y689fbjG"
+        "nHEpXzmJYSMEIPO3PUD1yx5z7deSbSeT9rS3ZJg0iEYDjO1scfTjOc5yT1zWjp1g"
+        "J0aOa2D+Xg7mYLkkZPAz2xX/2Q=="
+    ), "e319fbcfd8b97c955530490fe998e14665fce9e150e32cea4131b7aa862738e4"),
+    "restart-2": (29, 23, (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8L"
+        "CwkMEQ8SEhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBweHx7/2wBDAQUF"
+        "BQcGBw4ICA4eFBEUHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4e"
+        "Hh4eHh4eHh4eHh4eHh7/wAARCAAXAB0DASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEA"
+        "AAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIh"
+        "MUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6"
+        "Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZ"
+        "mqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx"
+        "8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREA"
+        "AgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAV"
+        "YnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hp"
+        "anN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPE"
+        "xcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/90ABAAC/9oADAMBAAIR"
+        "AxEAPwD5o8MWiyzIvMhI2kDJXHccjA6gV6R4csGeNUfkMzZLEnGOMZPTH49+tcv4"
+        "XsPKucSqq/JhicgnIHT34zj39a9S0CwddhTYSTjcGJxzgsT/AI9h3xRQxHKlYWPw"
+        "Ft0dH4bsldfMC/JtUnLYTHHGO/A/XpXoOi6eVtfM8gSGT5ssQMj16H/IrE8P6bGr"
+        "AYKgqMle64x/ke/vXo2jWyi03BpIVZjtww5H1zXvYbFNK61PjcbgFba/of/Q8x8M"
+        "aezQD7PuVlG5snnOOx9uK9O8I2sTiM7cL/EAe5APTp0P60UV40JyjC6PqszpxjKy"
+        "PUfCdlCpRAI5DgI2V/E4z26//rrvdHjiihbzUAYnGQOuMj86KK9qjNq/oj4zGUIS"
+        "nyv+tD//2Q=="
+    ), "70764ba57c1472161b2b348bb76d93f30988d17ead6fca14c9e38ca5712d37d8"),
+}
+
+
+def codec_phase(card: str, data: dict, train: dict) -> dict:
+    """6e: the port's JPEG codec held to libjpeg-turbo's bytes and pixels
+    through committed digests (this machine has no libjpeg), then its
+    single-thread speed beside the data path's figures from 6a and
+    6b."""
+    import base64
+    import hashlib
+    from transeditor_tpu_torch.data import native
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    for key, want in CODEC_ENCODE_SHA256.items():
+        size, q = key.split("-q")
+        h, w = map(int, size.split("x"))
+        got = sha(native.encode_jpeg(seeded_rgb(h, w, seed=h * w), int(q)))
+        check(got == want, f"6e encode {key}: sha256 {got}, libjpeg {want}")
+    for name, (w, h, b64, want) in CODEC_DECODE.items():
+        px = native.decode_jpeg(base64.b64decode(b64))
+        check(px.shape == (h, w, 3), f"6e decode {name}: {px.shape}")
+        got = sha(px.tobytes())
+        check(got == want, f"6e decode {name}: sha256 {got}, libjpeg {want}")
+    print(f"6e codec vs libjpeg-turbo 2.1.5: {len(CODEC_ENCODE_SHA256)} "
+          f"encoder outputs (qualities 1, 50, 95, 100 at two odd sizes) "
+          f"and the pixels of {len(CODEC_DECODE)} decodes "
+          f"({', '.join(CODEC_DECODE)}) equal libjpeg's digests",
+          flush=True)
+
+    def us(fn, reps: int) -> float:
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) / reps * 1e6
+
+    imgs = {n: smooth_images(1, n, seed=n)[0] for n in (256, 1024)}
+    blobs = {n: native.encode_jpeg(img, 95) for n, img in imgs.items()}
+    out = {"encode_digests": len(CODEC_ENCODE_SHA256),
+           "decode_digests": len(CODEC_DECODE),
+           "decode_us_256": us(lambda: native.decode_jpeg(blobs[256]), 100),
+           "decode_us_1024": us(lambda: native.decode_jpeg(blobs[1024]),
+                                10),
+           "encode_us_256": us(lambda: native.encode_jpeg(imgs[256], 95),
+                               100)}
+    waits = train["data_wait_share"]
+    out["data_wait_share_mean"] = float(np.mean(waits))
+    print(f"6e data path ({card}): single thread, one q95 JPEG decoded at "
+          f"256px in {out['decode_us_256']:.1f} us, at 1024px in "
+          f"{out['decode_us_1024']:.1f} us, encoded at 256px in "
+          f"{out['encode_us_256']:.1f} us; NativeLMDBLoader "
+          f"{data['lmdb_1_img_per_s']:.1f} img/s with 1 worker, "
+          f"{data['lmdb_img_per_s']:.1f} with {data['workers']} (batch "
+          f"{data['batch']}); prepare_data {data['prepare_s']:.2f} s for "
+          f"{data['images']} images; 6b waited for data "
+          f"{out['data_wait_share_mean']:.2%} of each logged interval on "
+          f"average (steps: {', '.join(f'{w:.2%}' for w in waits)})",
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- phase 7
@@ -4575,8 +4774,8 @@ def _bmp_bytes(img: np.ndarray) -> bytes:
 def bmp_phase(root: pathlib.Path, size: int = 256) -> dict:
     """13e: a folder of ``N_BMP_IMAGES`` 24-bit BMPs at 300px (resized)
     read through ``ImageFolderSource`` and the training iterator, equal
-    to the same images read from PNGs; the iterator's img/s; with
-    libjpeg, ``cli.prepare_data`` on the BMP folder too."""
+    to the same images read from PNGs; the iterator's img/s;
+    ``cli.prepare_data`` on the BMP folder too."""
     from transeditor_tpu_torch.data.dataset import (ImageFolderSource,
                                                     make_train_iterator)
     from transeditor_tpu_torch.utils.image import save_png
@@ -4602,18 +4801,14 @@ def bmp_phase(root: pathlib.Path, size: int = 256) -> dict:
     finally:
         it.close()
     check(got.shape == (batch, size, size, 3), f"13e batch {got.shape}")
+    from transeditor_tpu_torch.cli import prepare_data
+    n, _ = _quiet(prepare_data.main, ["--in_dir", str(root / "bmp"),
+                                      "--out", str(root / "lmdb"),
+                                      "--size", str(size)])
+    check(n == N_BMP_IMAGES, f"13e prepare_data wrote {n}")
     out = {"images": N_BMP_IMAGES, "iterator_img_s": rate,
-           "prepare_data": None}
-    if libjpeg_present():
-        from transeditor_tpu_torch.cli import prepare_data
-        n, _ = _quiet(prepare_data.main, ["--in_dir", str(root / "bmp"),
-                                          "--out", str(root / "lmdb"),
-                                          "--size", str(size)])
-        check(n == N_BMP_IMAGES, f"13e prepare_data wrote {n}")
-        out["prepare_data"] = n
-    said = (f"cli.prepare_data wrote {out['prepare_data']} records"
-            if out["prepare_data"] else
-            "cli.prepare_data not run (no libjpeg on this machine)")
+           "prepare_data": n}
+    said = f"cli.prepare_data wrote {n} records"
     print(f"13e {N_BMP_IMAGES} BMPs (300px -> {size}) equal their PNGs "
           f"through ImageFolderSource; the iterator reads {rate:.1f} "
           f"img/s; {said}", flush=True)
@@ -4764,20 +4959,13 @@ def main() -> int:
     trained["card_vs_cpu"] = train_card_vs_cpu(fb, dev)
     train_counts = trained["variants"]   # per step, by role and path
 
-    with_jpeg = libjpeg_present()
-    if not with_jpeg:
-        print("phase 6: the JPEG / LMDB path (native/teio.cpp: "
-              "prepare_data, NativeLMDBLoader, jpeg_b64 answers) is NOT run "
-              "on this machine: libjpeg (jpeglib.h, -ljpeg) is absent, so "
-              "teio cannot be built; phase 6 trains from the PNG folder "
-              "(ImageFolderSource) instead", flush=True)
     try:
-        cli = {"data": data_phase(out_root / "data", 256, TRAIN_BATCH,
-                                  with_jpeg)}
+        cli = {"data": data_phase(out_root / "data", 256, TRAIN_BATCH)}
         cli["train"] = cli_train_phase(fb, dev, out_root, cli["data"], [])
         cli["data_parallel"] = data_parallel_phase(dev)
         cli["serve_state"] = serve_state_phase(
-            fb, dev, cli["train"]["state_dir"], with_jpeg)
+            fb, dev, cli["train"]["state_dir"])
+        cli["codec"] = codec_phase(card, cli["data"], cli["train"])
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
     t7 = time.time()

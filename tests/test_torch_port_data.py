@@ -3,7 +3,7 @@
   * the LMDB writer: the same items give the same bytes (the small,
     overflow and multi-level cases of ``tests/test_native_io.py``), and
     each package's reader reads the other's file;
-  * the native loader (the port's own build of ``native/teio.cpp``):
+  * the native loader (the port's runtime, ``csrc/teio.cpp``):
     the same LMDB and seed give the same batches bit for bit, with one
     worker, three, and each host of two;
   * ``make_train_iterator`` on an ``ArraySource``: the same batches bit

@@ -110,16 +110,14 @@ def test_dlib_provider_raises_import_error():
         fa.dlib_landmark_provider("shape_predictor_68.dat")
 
 
-def _raw_dir(root, with_jpeg):
+def _raw_dir(root):
     raw = root / "raw"
     raw.mkdir()
     img, lm, _, _ = REGIMES["plain"]
     Image.fromarray(img).save(raw / "a.png")
     Image.fromarray(img[:, ::-1].copy()).save(raw / "c.png")    # no landmarks
-    lms = {"a.png": lm}
-    if with_jpeg:
-        Image.fromarray(img[::-1].copy()).save(raw / "b.jpg", quality=95)
-        lms["b.jpg"] = lm
+    Image.fromarray(img[::-1].copy()).save(raw / "b.jpg", quality=95)
+    lms = {"a.png": lm, "b.jpg": lm}
     np.savez(root / "lm.npz", **lms)
     return raw
 
@@ -130,14 +128,13 @@ def _tree(root):
 
 
 def test_align_cli_matches_jax(tmp_path, capsys):
-    with_jpeg = align_cli._jpeg_writable()
-    raw = _raw_dir(tmp_path, with_jpeg)
+    raw = _raw_dir(tmp_path)
     argv = ["--root_path", str(raw), "--landmarks",
             str(tmp_path / "lm.npz"), "--output_size", "32"]
     jalign_cli.main(argv + ["--out_path", str(tmp_path / "jax")])
     align_cli.main(argv + ["--out_path", str(tmp_path / "port")])
     assert "skipped c.png" in capsys.readouterr().out
-    want = ["a.png"] + (["b.jpg"] if with_jpeg else [])
+    want = ["a.png", "b.jpg"]
     assert _tree(tmp_path / "port") == _tree(tmp_path / "jax") == want
     for name in want:
         got = load_image(str(tmp_path / "port" / name))

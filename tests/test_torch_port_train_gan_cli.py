@@ -2,7 +2,8 @@
 the CPU: ``cli/train_gan.py`` (flags and configs, a tiny two-step run
 from an LMDB and its resume) and ``cli/prepare_data.py`` (the same LMDB
 layout, images within 40 dB PSNR of the JAX CLI's: the port encodes
-with libjpeg and resizes in numpy, the JAX CLI through PIL)."""
+with its own JPEG codec and resizes in numpy, the JAX CLI through
+PIL)."""
 
 import dataclasses
 import json

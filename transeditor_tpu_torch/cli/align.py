@@ -11,11 +11,11 @@ Landmark sources, in priority order:
     (precomputed by any detector);
   * ``--predictor``: dlib shape-predictor weights (requires dlib).
 
-Images are read with ``utils/image.py::load_image`` (PNG, and JPEG where
-libjpeg is present) and each aligned image is written under its source's
-name: PNG through zlib, JPEG through libjpeg at PIL's default quality
-(75).  A format this machine cannot write (BMP, WebP, or JPEG without
-libjpeg) raises ``ValueError`` naming the file before any image is
+Images are read with ``utils/image.py::load_image`` (PNG, JPEG, BMP)
+and each aligned image is written under its source's name: PNG through
+zlib, JPEG through the port's own codec (``data/native.py``, the bytes
+libjpeg writes) at PIL's default quality (75).  Any other output format
+(BMP, WebP) raises ``ValueError`` naming the file before any image is
 aligned.  Host preprocessing: no device is involved.
 """
 
@@ -34,32 +34,14 @@ IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 JPEG_QUALITY = 75            # PIL's default, which the JAX CLI writes at
 
 
-def _jpeg_writable() -> bool:
-    from transeditor_tpu_torch.data import native
-    try:
-        native.load_library()
-    except (RuntimeError, OSError):
-        return False
-    return True
-
-
 def check_writable(names) -> None:
-    """Raise ``ValueError`` naming the first output this machine cannot
-    write: PNG always, JPEG with libjpeg, nothing else."""
-    jpeg = None
+    """Raise ``ValueError`` naming the first output that is neither PNG
+    nor JPEG."""
     for name in names:
-        ext = os.path.splitext(name)[1].lower()
-        if ext == ".png":
-            continue
-        if ext in (".jpg", ".jpeg"):
-            if jpeg is None:
-                jpeg = _jpeg_writable()
-            if jpeg:
-                continue
-            raise ValueError(f"{name}: JPEG output needs libjpeg, which "
-                             f"this machine lacks; convert the sources to "
-                             f"PNG")
-        raise ValueError(f"{name}: only PNG and JPEG outputs are written")
+        if os.path.splitext(name)[1].lower() not in (".png", ".jpg",
+                                                      ".jpeg"):
+            raise ValueError(f"{name}: only PNG and JPEG outputs are "
+                             f"written")
 
 
 def save_image(path: str, img: np.ndarray) -> None:

@@ -5,7 +5,8 @@ Writes the ``MultiResolutionDataset`` layout that the training loader
 (and the reference's ``utils/dataset.py``) reads: keys
 ``f'{res}-{idx:05d}'`` holding JPEG bytes plus a ``length`` record.
 Images are read and resized without PIL (``data/dataset.py``) and
-encoded with libjpeg through the native runtime.
+encoded by the port's own JPEG codec (``data/native.py``), which writes
+the bytes libjpeg's defaults write.
 
 Usage:
   python -m transeditor_tpu_torch.cli.prepare_data --in_dir imgs/ \\

@@ -1,17 +1,18 @@
-"""ctypes binding to the native IO runtime, ``native/teio.cpp``
-(``transeditor_tpu/data/native.py``).
+"""ctypes binding to the port's native IO runtime, ``csrc/teio.cpp`` and
+``csrc/jpeg.cpp`` (``transeditor_tpu/data/native.py``).
 
   * ``NativeLMDB``       - read-only LMDB access (no lmdb package);
-  * ``decode_jpeg`` / ``encode_jpeg`` - libjpeg RGB decode and encode;
+  * ``decode_jpeg`` / ``encode_jpeg`` - the port's own JPEG codec: 8-bit
+    baseline and progressive decode to RGB, baseline 4:2:0 encode, each
+    giving libjpeg-turbo's default pixels and bytes bit for bit;
   * ``NativeLMDBSource`` - random access to one decoded record;
   * ``NativeLMDBLoader`` - C++ worker threads producing decoded uint8
     [B, res, res, 3] batches.
 
-The runtime is built from ``native/teio.cpp`` with g++ at first use into
-``build/transeditor_tpu_torch/libteio-<hash>.so`` (``ops/cuda_build.py``
-names and caches it); ``native/libteio.so``, the JAX package's build, is
-never loaded or written.  Building needs libjpeg's header and library
-(``jpeglib.h``, ``-ljpeg``); without them the build raises.
+The runtime is built from ``csrc/teio.cpp`` and ``csrc/jpeg.cpp`` with
+g++ alone at first use into ``build/transeditor_tpu_torch/libteio-
+<hash>.so`` (``ops/cuda_build.py`` names and caches it).  It links no
+image library: the codec is plain integer C++.
 """
 
 from __future__ import annotations
@@ -23,18 +24,44 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parents[2] / "native" / "teio.cpp"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SRC = _CSRC / "teio.cpp"
+SOURCES = (SRC, _CSRC / "jpeg.cpp")
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
-LIBS = ("-ljpeg", "-lpthread")
+LIBS = ("-lpthread",)
+
+# the codec's refusals (csrc/jpeg.cpp), by return code
+CODEC_ERRORS = {
+    -1: "corrupt JPEG: a malformed marker segment",
+    -2: "the JPEG's size is not the one asked for",
+    -3: "not a JPEG (no SOI marker)",
+    -4: "truncated JPEG: the data ends before the image does",
+    -5: "arithmetic-coded JPEG (SOF9-15) is not supported",
+    -6: "JPEG sample precision other than 8 bits (12-bit) is not supported",
+    -7: "lossless or hierarchical JPEG is not supported",
+    -8: "JPEG with other than 1 or 3 components (CMYK / YCCK) is not "
+        "supported",
+    -9: "JPEG sampling factors other than 1 or 2 per axis are not "
+        "supported",
+    -10: "corrupt JPEG: no Huffman code matches the data",
+    -11: "corrupt JPEG: a scan uses a missing or invalid table",
+    -12: "progressive JPEG whose scans leave coefficients unrefined "
+         "(libjpeg would smooth them) is not supported",
+    -13: "JPEG frame larger than its data can hold (corrupt)",
+    -14: "corrupt JPEG: invalid progressive scan parameters",
+    -15: "JPEG without an image (no frame or no scan before EOI)",
+    -16: "corrupt JPEG: coefficients run past the end of a block",
+    -17: "invalid arguments to the JPEG codec",
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
 def library_path() -> Path:
-    """Where the runtime for this ``teio.cpp`` is (or will be) built."""
+    """Where the runtime for these sources is (or will be) built."""
     from transeditor_tpu_torch.ops.cuda_build import hashed_path
-    return hashed_path("teio", SRC, [*GXX_FLAGS, *LIBS])
+    return hashed_path("teio", SOURCES, [*GXX_FLAGS, *LIBS])
 
 
 def load_library() -> ctypes.CDLL:
@@ -45,7 +72,7 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         from transeditor_tpu_torch.ops.cuda_build import build_shared
-        lib = ctypes.CDLL(str(build_shared("teio", SRC, "g++", GXX_FLAGS,
+        lib = ctypes.CDLL(str(build_shared("teio", SOURCES, "g++", GXX_FLAGS,
                                            LIBS)))
         lib.teio_lmdb_open.restype = ctypes.c_void_p
         lib.teio_lmdb_open.argtypes = [ctypes.c_char_p]
@@ -154,12 +181,14 @@ def decode_jpeg(data: bytes, width: Optional[int] = None,
                               out.ctypes.data_as(ctypes.c_void_p),
                               width, height)
     if rc != 0:
-        raise ValueError(f"jpeg decode failed ({rc})")
+        raise ValueError(CODEC_ERRORS.get(rc, f"jpeg decode failed ({rc})"))
     return out
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 90) -> bytes:
-    """[H, W, 3] uint8 RGB -> JPEG bytes via libjpeg."""
+    """[H, W, 3] uint8 RGB -> baseline 4:2:0 JPEG bytes, those of
+    libjpeg-turbo's ``jpeg_set_defaults`` + ``jpeg_set_quality(quality,
+    TRUE)`` (quality clamped to 1..100)."""
     lib = load_library()
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim != 3 or img.shape[2] != 3:
@@ -170,7 +199,9 @@ def encode_jpeg(img: np.ndarray, quality: int = 90) -> bytes:
     n = lib.teio_jpeg_encode(img.ctypes.data_as(ctypes.c_void_p),
                              w, h, quality, buf, cap)
     if n < 0:
-        raise ValueError(f"jpeg encode failed ({n})")
+        raise ValueError(f"jpeg encode failed ({n}): "
+                         + CODEC_ERRORS.get(n, "output larger than its "
+                                                "buffer"))
     return buf.raw[:n]
 
 

@@ -11,7 +11,7 @@ the last batch is padded and the padding's scores are dropped, so no
 file is skipped.
 
 Images are read without PIL (``utils/image.py::load_image``: PNG, BMP,
-or JPEG where libjpeg is present) and resized with
+or JPEG through the port's own codec) and resized with
 ``resize_bilinear``, PIL's ``Image.BILINEAR``, when their size differs.
 ``.webp`` files are paired as the JAX package pairs them but cannot be
 read: ``load_image`` raises naming the file.  The ID crop is

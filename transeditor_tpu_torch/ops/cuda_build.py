@@ -44,32 +44,43 @@ def _nvcc() -> str:
     return path
 
 
-def hashed_path(stem: str, src: Path, flags: Sequence[str]) -> Path:
-    """``BUILD_DIR/lib<stem>-<hash>.so``, the hash over source and flags."""
-    h = hashlib.sha256(Path(src).read_bytes())
+def _sources(src: Path | Sequence[Path]) -> list[Path]:
+    return [Path(src)] if isinstance(src, (str, Path)) else \
+        [Path(s) for s in src]
+
+
+def hashed_path(stem: str, src: Path | Sequence[Path],
+                flags: Sequence[str]) -> Path:
+    """``BUILD_DIR/lib<stem>-<hash>.so``, the hash over the sources (one
+    or several, in order) and the flags."""
+    h = hashlib.sha256()
+    for s in _sources(src):
+        h.update(s.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_shared(stem: str, src: Path, compiler: str,
+def build_shared(stem: str, src: Path | Sequence[Path], compiler: str,
                  flags: Sequence[str], libs: Sequence[str] = ()) -> Path:
-    """Compile ``src`` with ``compiler flags -o <lib> src libs`` unless
-    its hashed library exists; returns the library's path.
+    """Compile ``src`` (one source or several, linked into one library)
+    with ``compiler flags -o <lib> src... libs`` unless its hashed
+    library exists; returns the library's path.
 
     The compiler's report is kept beside the library as ``<lib>.log``.
     A failed build raises with that report.
     """
-    out = hashed_path(stem, src, [*flags, *libs])
+    srcs = _sources(src)
+    out = hashed_path(stem, srcs, [*flags, *libs])
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [compiler, *flags, "-o", str(tmp), str(src), *libs]
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, srcs), *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"{Path(compiler).name} failed for "
-                           f"{Path(src).name}:\n{log}")
+                           f"{', '.join(s.name for s in srcs)}:\n{log}")
     out.with_suffix(".so.log").write_text(log)
     os.replace(tmp, out)          # atomic: concurrent builds agree
     return out

@@ -250,8 +250,8 @@ def make_http_server(engine: InferenceEngine, host: str = "127.0.0.1",
     POST /edit_strip  {"z_plus", "p_plus", "boundary", "space", ...}
 
     Any POST may add ``{"format": "jpeg_b64"[, "quality": 90]}`` to get
-    base64 JPEG strings instead of nested uint8 lists (encoded by libjpeg
-    through the native runtime, ``data/native.py``).
+    base64 JPEG strings instead of nested uint8 lists (encoded by the
+    port's own JPEG codec, ``data/native.py``).
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 

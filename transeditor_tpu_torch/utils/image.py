@@ -1,5 +1,5 @@
 """Image conversion helpers, and image reading, writing and resizing
-without PIL: PNG through zlib, JPEG through the native runtime
+without PIL: PNG through zlib, JPEG through the port's own codec
 (``data/native.py``), and PIL's LANCZOS and BILINEAR resizes.  PNG
 unfiltering and the resize's passes run in ``csrc/image_io.cpp``, built
 with g++ at first use."""
@@ -230,8 +230,9 @@ def load_bmp(path: str) -> np.ndarray:
 
 def load_image(path: str) -> np.ndarray:
     """A PNG, JPEG or BMP file as [H, W, 3] uint8 RGB, by its leading
-    bytes.  JPEG goes through the native runtime (libjpeg); any other
-    format raises ``ValueError`` naming the file."""
+    bytes.  JPEG goes through the port's own codec (``data/native.py``:
+    baseline and progressive, libjpeg's pixels); any other format raises
+    ``ValueError`` naming the file."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head == PNG_SIGNATURE:
