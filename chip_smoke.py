@@ -99,6 +99,20 @@ torch.profiler (the order is at the end of this list).
      image at 256px and at 1024px and to encode one at 256px, printed
      with 6a's loader rates, prepare_data's seconds and 6b's data-wait
      share, beside the card's name and power limit.
+  6f. every image form the JAX package reads through PIL, read here
+     with no image library (``utils/image.py``, ``csrc/webp.cpp``,
+     ``csrc/jpeg.cpp``): 6f-1 each fixture of ``tests/image_forms``
+     (WebP lossy, lossless, with ALPH, animated, and libwebp's encoder
+     settings; PNG in every colour type x depth x interlace; CMYK and
+     YCCK JPEG) decoded, the SHA-256 of its pixels equal to PIL's
+     (``digests.json``); 6f-2 those files as a dataset, resized to 256
+     on read: ``cli.prepare_data`` to an LMDB (every record >= 40 dB from
+     its source as the port reads it), then ``cli.train_gan.main`` on it
+     at full width (f32, batch 16, two steps: R1 + path, plain), every
+     metric finite, launches by role and path all on the TMA path (a
+     main path, counted); 6f-3 single-threaded, the µs to decode a 256px
+     lossy q75 WebP, a 256px lossless WebP and a 256px 4:2:0 CMYK JPEG
+     (100 reps each), beside the card's name and power limit.
 
   7. inversion (``invert/projector.py``, ``cli/project.py``):
   7a. the projector at full width (the main path, counted): the 256px
@@ -1275,21 +1289,22 @@ def _variant(do_d_reg: bool, do_g_reg: bool, do_spatial_reg: bool) -> str:
         (bool(do_d_reg), bool(do_g_reg), bool(do_spatial_reg))]
 
 
-def cli_train_phase(fb, dev, root: pathlib.Path, data: dict,
-                    model_argv: list) -> dict:
-    """6b: ``cli.train_gan.main`` in this process, steps 0-3 (R1 every 2,
-    path length every 3: r1+path, plain, r1, path), then ``--resume`` to
-    step 6; counted by role and path.  Each step is timed by the host
-    clock between two synchronisations (a wrapper around the loop's
-    step)."""
-    from transeditor_tpu_torch.cli import train_gan
-    from transeditor_tpu_torch.train import loop
-
-    out_dir = root / "runs"
-    argv = [data["path"], "--out_dir", str(out_dir), "--exp_name", "cli",
+def cli_train_argv(data: dict, out_dir: pathlib.Path, name: str,
+                   model_argv: list) -> list:
+    """``cli.train_gan`` arguments for ``data`` (6a's or 6f's): batch 16,
+    R1 every 2, path length every 3, every step logged."""
+    return [data["path"], "--out_dir", str(out_dir), "--exp_name", name,
             "--batch", str(TRAIN_BATCH), "--d_reg_every", "2",
             "--g_reg_every", "3", "--n_sample", "16", "--log_every", "1",
             *(["--lmdb"] if data["data"] == "lmdb" else []), *model_argv]
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """Times each train step the loop makes by the host clock between two
+    synchronisations; yields the list of (variant, ms) it fills."""
+    from transeditor_tpu_torch.train import loop
+
     timed = []
     make_step = loop.make_train_step
 
@@ -1311,6 +1326,23 @@ def cli_train_phase(fb, dev, root: pathlib.Path, data: dict,
 
     loop.make_train_step = timed_make
     try:
+        yield timed
+    finally:
+        loop.make_train_step = make_step
+
+
+def cli_train_phase(fb, dev, root: pathlib.Path, data: dict,
+                    model_argv: list) -> dict:
+    """6b: ``cli.train_gan.main`` in this process, steps 0-3 (R1 every 2,
+    path length every 3: r1+path, plain, r1, path), then ``--resume`` to
+    step 6; counted by role and path.  Each step is timed by the host
+    clock between two synchronisations (a wrapper around the loop's
+    step)."""
+    from transeditor_tpu_torch.cli import train_gan
+
+    out_dir = root / "runs"
+    argv = cli_train_argv(data, out_dir, "cli", model_argv)
+    with timed_steps() as timed:
         torch.cuda.synchronize()
         fb.launches.reset()                  # the main path starts here
         t0 = time.perf_counter()
@@ -1321,8 +1353,6 @@ def cli_train_phase(fb, dev, root: pathlib.Path, data: dict,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = fb.launches.by_role_path     # ... and ends here
-    finally:
-        loop.make_train_step = make_step
     check(state.step == 6, f"resumed run ended at step {state.step}")
 
     log = out_dir / "cli" / "log" / "metrics.jsonl"
@@ -1791,6 +1821,107 @@ def codec_phase(card: str, data: dict, train: dict) -> dict:
           f"average (steps: {', '.join(f'{w:.2%}' for w in waits)})",
           flush=True)
     return out
+
+
+# ---------------------------------------------------------------- 6f
+
+IMAGE_FORMS = pathlib.Path(__file__).resolve().parent / "tests" / \
+    "image_forms"
+FORMS_TIMED = ("webp_lossy_q75_256x256.webp", "webp_lossless_256x256.webp",
+               "jpeg_cmyk_baseline_420_256x256.jpg")
+
+
+def image_forms_phase(fb, card: str, root: pathlib.Path, data: dict,
+                      train: dict, codec: dict, model_argv: list) -> dict:
+    """6f: the image forms of ``tests/image_forms`` (PIL's digests of
+    each, 6f-1), as a dataset through ``cli.prepare_data`` and two
+    full-width ``cli.train_gan`` steps (6f-2, counted by role and path),
+    and the decode's single-thread µs (6f-3)."""
+    import hashlib
+    from transeditor_tpu_torch.cli import prepare_data, train_gan
+    from transeditor_tpu_torch.data import native
+    from transeditor_tpu_torch.data.dataset import ImageFolderSource
+    from transeditor_tpu_torch.utils.image import decode_webp, load_image
+
+    digests = json.loads((IMAGE_FORMS / "digests.json").read_text())
+    check(len(digests) >= 90, f"6f: {len(digests)} fixtures")
+    kinds: dict = {}
+    for name, want in digests.items():
+        px = load_image(str(IMAGE_FORMS / name))
+        got = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == want["shape"] and got == want["sha256"],
+              f"6f-1 {name}: {px.shape} sha256 {got}, PIL {want['sha256']}")
+        kind = name.split("_")[0]
+        kinds[kind] = kinds.get(kind, 0) + 1
+    print(f"6f-1 image forms without an image library: the pixels of all "
+          f"{len(digests)} fixtures ({kinds}) equal PIL's digests",
+          flush=True)
+
+    lmdb = root / "forms_lmdb"
+    size = data["size"]
+    t0 = time.time()
+    n = prepare_data.main(["--in_dir", str(IMAGE_FORMS), "--out", str(lmdb),
+                           "--size", str(size)])
+    prepare_s = time.time() - t0
+    check(n == len(digests), f"6f-2 prepare_data wrote {n} images")
+    folder = ImageFolderSource(str(IMAGE_FORMS))
+    src = native.NativeLMDBSource(str(lmdb))
+    worst = min(psnr(src.get(i, size), folder.get(i, size))
+                for i in range(n))
+    src.db.close()
+    check(worst >= 40.0, f"6f-2 LMDB record vs source: {worst:.2f} dB")
+    out_dir = root / "runs"
+    argv = cli_train_argv({"path": str(lmdb), "data": "lmdb"}, out_dir,
+                          "forms", model_argv)
+    with timed_steps() as timed:
+        torch.cuda.synchronize()
+        fb.launches.reset()                  # the main path starts here
+        state = train_gan.main([*argv, "--iter", "2"])
+        torch.cuda.synchronize()
+        counts = fb.launches.by_role_path     # ... and ends here
+    check(state.step == 2, f"6f-2 run ended at step {state.step}")
+    log = out_dir / "forms" / "log" / "metrics.jsonl"
+    lines = [json.loads(s) for s in log.read_text().splitlines()]
+    check([r["step"] for r in lines] == [0, 1],
+          f"6f-2 logged steps {[r['step'] for r in lines]}")
+    for r in lines:
+        check(all(np.isfinite(v) for v in r.values()), f"6f-2 step {r}")
+    paths = {p for by in counts.values() for p in by}
+    check(paths == {"tma"}, f"6f-2 launches by role and path {counts}")
+    check(all(counts.get(r) for r in ("forward", "adjoint", "recompute")),
+          f"6f-2 launches by role {counts}")
+    print(f"6f-2 {n} fixtures resized to {size} on read -> prepare_data "
+          f"in {prepare_s:.2f} s, records vs source worst {worst:.2f} dB "
+          f"(limit 40); cli.train_gan.main, 2 steps, all finite; "
+          f"fused_blur4 launches {counts}", flush=True)
+    for i, (name, ms) in enumerate(timed):
+        same = train["ms_by_variant"].get(name, [])
+        print(f"  step {i} ({name}): {ms:.1f} ms; 6b's {name} steps "
+              f"{', '.join(f'{m:.1f}' for m in same)} ms", flush=True)
+
+    def us(fn, reps: int = 100) -> float:
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) / reps * 1e6
+
+    blobs = {name: (IMAGE_FORMS / name).read_bytes() for name in FORMS_TIMED}
+    decode_us = {}
+    for name, blob in blobs.items():
+        if name.endswith(".webp"):
+            decode_us[name] = us(lambda b=blob: decode_webp(b))
+        else:
+            decode_us[name] = us(lambda b=blob: native.decode_jpeg(
+                b, cmyk=True))
+    print(f"6f-3 decode ({card}): single thread, 100 reps each: "
+          + ", ".join(f"{name} {t:.1f} us" for name, t in decode_us.items())
+          + f"; 6e's q95 4:2:0 JPEG at 256px {codec['decode_us_256']:.1f} "
+          f"us", flush=True)
+    return {"fixtures": len(digests), "by_kind": kinds,
+            "prepare_s": prepare_s, "worst_psnr_db": worst,
+            "launches": counts, "step_ms": timed, "losses": lines,
+            "decode_us": decode_us}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -4966,6 +5097,8 @@ def main() -> int:
         cli["serve_state"] = serve_state_phase(
             fb, dev, cli["train"]["state_dir"])
         cli["codec"] = codec_phase(card, cli["data"], cli["train"])
+        cli["forms"] = image_forms_phase(fb, card, out_root, cli["data"],
+                                         cli["train"], cli["codec"], [])
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
     t7 = time.time()
@@ -5070,9 +5203,11 @@ def main() -> int:
         "source": "transeditor_tpu_torch/csrc/fused_blur4.cu",
         "replaces": "transeditor_tpu/ops/pallas_blur.py:131",
         # the main paths, each counted from 0: serving (phase 4),
-        # training (5b), the CLI's training (6b), serving its state (6d)
+        # training (5b), the CLI's training (6b, 6f-2), serving its state
+        # (6d)
         "launches": sum(serve_paths.values()) + total(trained["main_launches"])
-        + total(cli["train"]["launches"]) + total(projected["launches"])
+        + total(cli["train"]["launches"]) + total(cli["forms"]["launches"])
+        + total(projected["launches"])
         + total(projected["cli"]["launches"])
         + sum(total(c) for c in coached["launches"].values())
         + sum(total(c) for c in coached["cli"]["launches"].values())
@@ -5086,6 +5221,8 @@ def main() -> int:
         "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
         "cli_train_launches": cli["train"]["launches"],
+        # 6f-2, from 0: two steps on the LMDB of the image-form fixtures
+        "forms_train_launches": cli["forms"]["launches"],
         "serve_state_launches": cli["serve_state"]["launches"],
         # the projector (7a, 60 steps) and cli.project (7c), each from 0
         "project_launches": {"projector": projected["launches"],

@@ -301,14 +301,15 @@ def test_encode_jpeg_bytes_equal_the_jax_binding(quality):
 
 @pytest.mark.parametrize("name", ["a.webp", "b.bmp"])
 def test_unread_formats_raise_naming_the_file(tmp_path, name):
-    """``.webp`` raises naming the file; ``.bmp`` is read now, equal to
-    the JAX source's PIL read."""
+    """``.webp`` and ``.bmp`` are read now, equal to the JAX source's PIL
+    read; a file cut short raises naming it."""
     Image.fromarray(_smooth(1, 8)[0]).save(tmp_path / "ok.png")
     Image.fromarray(_smooth(1, 8, seed=1)[0]).save(tmp_path / name)
-    if name.endswith(".webp"):
-        with pytest.raises(ValueError, match=name):
-            dataset.ImageFolderSource(str(tmp_path))
-        return
+    data = (tmp_path / name).read_bytes()
+    (tmp_path / "cut" / name).parent.mkdir()
+    (tmp_path / "cut" / name).write_bytes(data[:len(data) // 2])
+    with pytest.raises(ValueError, match=name):
+        load_image(str(tmp_path / "cut" / name))
     src = dataset.ImageFolderSource(str(tmp_path))
     want = jax_dataset.ImageFolderSource(str(tmp_path))
     assert len(src) == len(want) == 2
@@ -318,6 +319,9 @@ def test_unread_formats_raise_naming_the_file(tmp_path, name):
 
 @pytest.mark.parametrize("kind", ["palette", "16-bit", "interlaced"])
 def test_png_reader_refuses_what_it_cannot_read(tmp_path, kind):
+    """Palette and 16-bit PNGs are read now, equal to PIL's
+    ``convert("RGB")``; a file flagged Adam7-interlaced whose data are
+    not is refused, as PIL refuses it (the passes need more bytes)."""
     img = Image.fromarray(_smooth(1, 8)[0])
     path = tmp_path / "x.png"
     if kind == "palette":
@@ -330,10 +334,16 @@ def test_png_reader_refuses_what_it_cannot_read(tmp_path, kind):
         raw[28] = 1                                  # IHDR interlace
         raw[29:33] = struct.pack(">I", zlib.crc32(bytes(raw[12:29])))
         path.write_bytes(bytes(raw))
-    with pytest.raises(ValueError, match="x.png"):
-        load_png(str(path))
-    with pytest.raises(ValueError):
-        load_image(str(path))
+        with pytest.raises(OSError):
+            Image.open(path).convert("RGB")
+        with pytest.raises(ValueError, match="x.png"):
+            load_png(str(path))
+        with pytest.raises(ValueError):
+            load_image(str(path))
+        return
+    want = np.asarray(Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(load_png(str(path)), want)
+    np.testing.assert_array_equal(load_image(str(path)), want)
 
 
 def test_other_files_are_refused(tmp_path):

@@ -150,12 +150,22 @@ def test_pair_folders_errors_as_jax(tmp_path):
 
 
 def test_unread_formats_raise_naming_the_file(tmp_path):
-    """The port pairs ``.webp`` as JAX does but cannot read it (no PIL)."""
+    """The port pairs ``.webp`` as JAX does and reads it now, equal to the
+    JAX package's PIL read (12px, resized to 8); a file cut short raises
+    naming it."""
     (tmp_path / "r").mkdir()
     (tmp_path / "g").mkdir()
-    Image.new("RGB", (8, 8)).save(tmp_path / "r" / "a.webp")
+    rng = np.random.RandomState(5)
+    Image.fromarray(rng.randint(0, 256, (12, 12, 3)).astype(np.uint8)).save(
+        tmp_path / "r" / "a.webp", quality=80)
     save_png(str(tmp_path / "g" / "a.png"), np.zeros((8, 8, 3), np.uint8))
     pairs = tpaired.pair_folders(str(tmp_path / "r"), str(tmp_path / "g"))
+    got = tpaired.load_pair_batch(pairs, 8)
+    want = jpaired.load_pair_batch(pairs, 8)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    data = (tmp_path / "r" / "a.webp").read_bytes()
+    (tmp_path / "r" / "a.webp").write_bytes(data[:len(data) // 2])
     with pytest.raises(ValueError, match="a.webp"):
         tpaired.load_pair_batch(pairs, 8)
 

@@ -12,6 +12,12 @@ own; the port links no image library.  Here:
   * encode: the JAX binding's bytes (``jpeg_set_defaults`` +
     ``jpeg_set_quality(q, TRUE)``) at qualities across 1..100 and at
     odd sizes;
+  * CMYK and YCCK (Adobe transform 0 and 2), baseline and progressive,
+    4:4:4 and 4:2:0: image files decode equal to PIL's ``convert("RGB")``
+    and to the JAX ``ImageFolderSource`` (the committed fixtures of
+    ``tests/image_forms/`` and files written here), under ASan / UBSan
+    too; LMDB records (``decode_jpeg``) still refuse them, as the JAX
+    binding does;
   * refusals: arithmetic coding, CMYK, 12-bit, block smoothing, a
     truncated stream, each a ``ValueError`` naming the reason;
   * robustness, in a child process: every truncation and 500 seeded
@@ -545,3 +551,84 @@ def test_chip_smoke_digests_are_libjpegs_and_the_ports():
         for px in (jax_native.decode_jpeg(data, w, h),
                    native.decode_jpeg(data)):
             assert hashlib.sha256(px.tobytes()).hexdigest() == want, name
+
+
+# --- CMYK / YCCK ------------------------------------------------------------
+
+FIXTURES = ROOT / "tests" / "image_forms"
+CMYK_FIXTURES = sorted(p.name for p in FIXTURES.glob("jpeg_*.jpg"))
+
+
+@pytest.fixture(scope="module")
+def folder_sources():
+    from transeditor_tpu.data import dataset as jax_dataset
+    from transeditor_tpu_torch.data import dataset
+    return (dataset.ImageFolderSource(str(FIXTURES)),
+            jax_dataset.ImageFolderSource(str(FIXTURES)))
+
+
+@pytest.mark.parametrize("name", CMYK_FIXTURES)
+def test_cmyk_ycck_fixture_equals_pil_and_the_jax_source(name,
+                                                         folder_sources):
+    from test_torch_port_webp import hold_fixture
+    hold_fixture(name, folder_sources)
+    data = (FIXTURES / name).read_bytes()
+    transform = data[data.index(b"Adobe") + 11]
+    assert transform == (2 if "ycck" in name else 0)
+
+
+@pytest.mark.parametrize("size", [(1, 1), (7, 5), (16, 16), (31, 17)])
+@pytest.mark.parametrize("kw", [dict(), dict(subsampling=2),
+                                dict(progressive=True, subsampling=1),
+                                dict(quality=20, optimize=True)])
+def test_cmyk_and_ycck_written_here_equal_pil(size, kw):
+    h, w = size
+    rng = np.random.RandomState(h * w)
+    img = np.clip(np.cumsum(rng.randint(-20, 21, (h, w, 4)), 1) + 128,
+                  0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG", **kw)
+    data = bytearray(buf.getvalue())
+    for transform in (0, 2, 1):          # 1: libjpeg takes it for YCCK
+        data[data.index(b"Adobe") + 11] = transform
+        want = np.asarray(Image.open(io.BytesIO(bytes(data))).convert("RGB"))
+        got = native.decode_jpeg(bytes(data), cmyk=True)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_lmdb_records_still_refuse_cmyk_as_the_jax_binding():
+    """The LMDB path (``decode_jpeg`` without ``cmyk``, and the native
+    loader's C++ workers) refuses a 4-component record, as the JAX
+    binding does (libjpeg cannot convert CMYK to RGB)."""
+    data = (FIXTURES / "jpeg_cmyk_baseline_444_33x65.jpg").read_bytes()
+    with pytest.raises(ValueError, match="CMYK"):
+        native.decode_jpeg(data)
+    with pytest.raises(ValueError):
+        jax_native.decode_jpeg(data, 33, 65)
+    assert native.decode_jpeg(data, cmyk=True).shape == (65, 33, 3)
+
+
+CMYK_HARNESS = FUZZ_HARNESS.replace(
+    "extern \"C\" int teio_jpeg_decode(", "extern \"C\" int "
+    "teio_jpeg_decode_cmyk(").replace(
+    "(teio_jpeg_decode(d.data()", "(teio_jpeg_decode_cmyk(d.data()")
+
+
+def test_cmyk_path_under_address_and_undefined_sanitizers(tmp_path):
+    """The 4-component path under ASan and UBSan: 1,500 seeded 1-4 byte
+    corruptions or truncations of each CMYK / YCCK fixture."""
+    assert "teio_jpeg_decode_cmyk(d.data()" in CMYK_HARNESS
+    (tmp_path / "fuzz.cpp").write_text(CMYK_HARNESS)
+    exe = tmp_path / "fuzz"
+    subprocess.run(["g++", "-O1", "-g", "-std=c++17",
+                    "-fsanitize=address,undefined",
+                    "-fno-sanitize-recover=undefined", "-o", str(exe),
+                    str(tmp_path / "fuzz.cpp"),
+                    str(PKG / "csrc" / "jpeg.cpp")],
+                   check=True, capture_output=True)
+    seeds = [str(FIXTURES / n) for n in CMYK_FIXTURES if "256" not in n]
+    proc = subprocess.run([str(exe), "1500", *seeds], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    decoded, refused = map(int, proc.stdout.split())
+    assert decoded > 0 and refused > 0 and decoded + refused > 8000

@@ -11,8 +11,10 @@ Landmark sources, in priority order:
     (precomputed by any detector);
   * ``--predictor``: dlib shape-predictor weights (requires dlib).
 
-Images are read with ``utils/image.py::load_image`` (PNG, JPEG, BMP)
-and each aligned image is written under its source's name: PNG through
+Images are read with ``utils/image.py::load_image`` (PNG of every
+form, JPEG with CMYK / YCCK, WebP lossy / lossless / animated, and
+uncompressed BMP, each as PIL's ``convert("RGB")`` gives it) and each
+aligned image is written under its source's name: PNG through
 zlib, JPEG through the port's own codec (``data/native.py``, the bytes
 libjpeg writes) at PIL's default quality (75).  Any other output format
 (BMP, WebP) raises ``ValueError`` naming the file before any image is

@@ -7,6 +7,11 @@
 //     defaults: dequantisation, the ISLOW IDCT of jidctint.c, the
 //     "fancy" upsampling of jdsample.c (h2v1, h1v2, h2v2), the
 //     fixed-point YCbCr->RGB of jdcolor.c; grayscale is replicated;
+//   * 4-component (CMYK / YCCK) decode, on request only, as PIL reads
+//     such a file: out_color_space JCS_CMYK (YCCK through jdcolor.c's
+//     ycck_cmyk_convert), PIL's inverted "CMYK;I" unpacking (Adobe
+//     polarity, assumed for every CMYK JPEG), then Pillow's cmyk2rgb
+//     (Convert.c);
 //   * encode = jpeg_set_defaults + jpeg_set_quality(q, TRUE): JFIF
 //     APP0 1.01, the Annex K tables scaled by jpeg_quality_scaling, 4:2:0
 //     YCbCr by jccolor.c / jcsample.c, the ISLOW FDCT of jfdctint.c,
@@ -15,12 +20,13 @@
 //
 // What it refuses (each a distinct negative code, named by
 // data/native.py): arithmetic coding, precisions other than 8,
-// lossless / hierarchical frames, 2 or 4 components, sampling ratios
+// lossless / hierarchical frames, 2 components (4 unless asked for),
+// sampling ratios
 // other than 1 or 2 per axis, progressive files whose scans leave
 // coefficients 1-9 unrefined (libjpeg would apply block smoothing),
 // and any truncated or corrupt stream (libjpeg warns and pads those).
 //
-// C ABI: teio_jpeg_decode, teio_jpeg_encode.
+// C ABI: teio_jpeg_decode, teio_jpeg_decode_cmyk, teio_jpeg_encode.
 
 #include <algorithm>
 #include <cstddef>
@@ -40,7 +46,7 @@ enum : int {
   E_ARITHMETIC = -5,   // SOF9-15: arithmetic coding
   E_PRECISION = -6,    // 12-bit or other non-8-bit samples
   E_LOSSLESS = -7,     // SOF3 / SOF5-7 / DHP / EXP: lossless, hierarchical
-  E_COMPONENTS = -8,   // not 1 or 3 components (4: CMYK / YCCK)
+  E_COMPONENTS = -8,   // not 1 or 3 components (nor 4 when allowed)
   E_SAMPLING = -9,     // a sampling ratio other than 1 or 2 per axis
   E_HUFFMAN = -10,     // no Huffman code matches the data
   E_TABLE = -11,       // a scan uses a missing or invalid table
@@ -373,15 +379,16 @@ struct Decoder {
   int restart_interval = 0;
   bool have_frame = false, progressive = false, defaults_set = false;
   int W = 0, H = 0, nf = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  Comp comp[3];
+  Comp comp[4];
   bool jfif = false, adobe = false;
   int adobe_transform = 0;
   int scans = 0;
   int eobrun = 0;
   int expect_w, expect_h;
+  bool four_ok;                  // 4 components (CMYK / YCCK) decoded
 
-  Decoder(const uint8_t* d, size_t len, int w, int h)
-      : data(d), end(d + len), expect_w(w), expect_h(h) {}
+  Decoder(const uint8_t* d, size_t len, int w, int h, bool cmyk)
+      : data(d), end(d + len), expect_w(w), expect_h(h), four_ok(cmyk) {}
 
   void read_sof(const uint8_t* b, int len, int marker) {
     if (have_frame) fail(E_CORRUPT);
@@ -392,7 +399,7 @@ struct Decoder {
     nf = b[5];
     if (len != 6 + 3 * nf) fail(E_CORRUPT);
     if (nf == 0 || H == 0 || W == 0) fail(E_CORRUPT);
-    if (nf != 1 && nf != 3) fail(E_COMPONENTS);
+    if (nf != 1 && nf != 3 && !(nf == 4 && four_ok)) fail(E_COMPONENTS);
     if (W > 65500 || H > 65500) fail(E_TOO_LARGE);
     if (W != expect_w || H != expect_h) fail(E_SIZE);
     progressive = marker == 0xC2;
@@ -979,8 +986,8 @@ struct Decoder {
   }
 
   void render(uint8_t* rgb) {
-    std::vector<uint8_t> planes[3];
-    int stride[3];
+    std::vector<uint8_t> planes[4];
+    int stride[4];
     for (int i = 0; i < nf; ++i) {
       Comp& c = comp[i];
       stride[i] = c.bw * 8;
@@ -992,10 +999,13 @@ struct Decoder {
                stride[i]);
     }
     const Tables& t = tables();
-    std::vector<uint8_t> rows(size_t(3) * (W + 2));
-    uint8_t* r[3] = {rows.data(), rows.data() + (W + 2),
-                     rows.data() + 2 * (W + 2)};
+    std::vector<uint8_t> rows(size_t(4) * (W + 2));
+    uint8_t* r[4] = {rows.data(), rows.data() + (W + 2),
+                     rows.data() + 2 * (W + 2), rows.data() + 3 * (W + 2)};
     const bool ycc = nf == 3 && is_ycc();
+    // default_decompress_parms: Adobe transform 0 is CMYK, any other
+    // YCCK; no Adobe marker, CMYK
+    const bool ycck = nf == 4 && adobe && adobe_transform != 0;
     for (int y = 0; y < H; ++y) {
       for (int i = 0; i < nf; ++i)
         upsample_row(comp[i], planes[i].data(), stride[i], y, r[i]);
@@ -1003,6 +1013,26 @@ struct Decoder {
       if (nf == 1) {
         for (int x = 0; x < W; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] =
             r[0][x];
+      } else if (nf == 4) {
+        for (int x = 0; x < W; ++x) {
+          int c = r[0][x], m = r[1][x], yl = r[2][x];
+          if (ycck) {  // ycck_cmyk_convert: 255 - the YCbCr->RGB result
+            const int yy = c, cb = m, cr = yl;
+            c = clamp255(255 - (yy + t.cr_r[cr]));
+            m = clamp255(255 - (yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+            yl = clamp255(255 - (yy + t.cb_b[cb]));
+          }
+          // "CMYK;I" inverts the four samples; cmyk2rgb then gives
+          // nk - c * nk / 255 with nk = 255 - k, here the stored K
+          const int nk = r[3][x];
+          auto muldiv255 = [](int a, int b) {
+            const int v = a * b + 128;
+            return ((v >> 8) + v) >> 8;
+          };
+          o[3 * x] = clamp255(nk - muldiv255(255 - c, nk));
+          o[3 * x + 1] = clamp255(nk - muldiv255(255 - m, nk));
+          o[3 * x + 2] = clamp255(nk - muldiv255(255 - yl, nk));
+        }
       } else if (ycc) {
         for (int x = 0; x < W; ++x) {
           int yy = r[0][x], cb = r[1][x], cr = r[2][x];
@@ -1366,13 +1396,11 @@ struct Encoder {
 
 extern "C" {
 
-// RGB8 [h, w, 3] into out; 0, or a negative code (see the enum above).
-// The frame's size must be (w, h).
-int teio_jpeg_decode(const uint8_t* buf, long len, uint8_t* out, int w,
-                     int h) {
+static int decode(const uint8_t* buf, long len, uint8_t* out, int w, int h,
+                  bool cmyk) {
   if (!buf || len < 0 || !out) return jpeg::E_ARGS;
   try {
-    jpeg::Decoder d(buf, size_t(len), w, h);
+    jpeg::Decoder d(buf, size_t(len), w, h, cmyk);
     d.parse();
     d.render(out);
     return jpeg::OK;
@@ -1381,6 +1409,20 @@ int teio_jpeg_decode(const uint8_t* buf, long len, uint8_t* out, int w,
   } catch (const std::bad_alloc&) {
     return jpeg::E_TOO_LARGE;
   }
+}
+
+// RGB8 [h, w, 3] into out; 0, or a negative code (see the enum above).
+// The frame's size must be (w, h).  4-component streams are refused.
+int teio_jpeg_decode(const uint8_t* buf, long len, uint8_t* out, int w,
+                     int h) {
+  return decode(buf, len, out, w, h, false);
+}
+
+// As teio_jpeg_decode, and 4-component (CMYK / YCCK) streams decoded to
+// the RGB that PIL's convert("RGB") gives them.
+int teio_jpeg_decode_cmyk(const uint8_t* buf, long len, uint8_t* out, int w,
+                          int h) {
+  return decode(buf, len, out, w, h, true);
 }
 
 // RGB8 [h, w, 3] -> JPEG in out (capacity cap); bytes written, -needed

@@ -9,7 +9,8 @@
 Shuffle and flip draws come from ``np.random.RandomState(seed +
 host_index)`` in the JAX iterator's order, so the same source and seed
 give the same batches bit for bit.  Images are read and resized without
-PIL (``utils/image.py``).
+PIL (``utils/image.py``), each to the pixels of PIL's
+``convert("RGB")``.
 """
 
 from __future__ import annotations
@@ -44,13 +45,13 @@ class ArraySource:
 
 
 class ImageFolderSource:
-    """The images of a folder in sorted name order: PNG, JPEG or BMP.
-    Files named ``.webp`` are listed as the JAX source lists them, but
-    cannot be read without a WebP decoder: the constructor raises
-    ``ValueError`` naming the first one."""
+    """The images of a folder in sorted name order, as the JAX source
+    lists them: PNG (every colour type, bit depth and interlace), JPEG
+    (CMYK and YCCK too), WebP (lossy, lossless, with alpha, or the first
+    frame of an animation) and uncompressed BMP, each read as PIL's
+    ``convert("RGB")`` reads it (``utils/image.py::load_image``)."""
 
     EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
-    UNREAD = (".webp",)
 
     def __init__(self, root: str):
         self.paths = sorted(
@@ -58,11 +59,6 @@ class ImageFolderSource:
             if f.lower().endswith(self.EXTS))
         if not self.paths:
             raise ValueError(f"no images under {root}")
-        unread = [p for p in self.paths if p.lower().endswith(self.UNREAD)]
-        if unread:
-            raise ValueError(f"{unread[0]}: .webp images are not read by "
-                             f"the PyTorch port (PNG, JPEG and BMP are); "
-                             f"convert them first")
 
     def __len__(self):
         return len(self.paths)

@@ -4,7 +4,8 @@
   * ``NativeLMDB``       - read-only LMDB access (no lmdb package);
   * ``decode_jpeg`` / ``encode_jpeg`` - the port's own JPEG codec: 8-bit
     baseline and progressive decode to RGB, baseline 4:2:0 encode, each
-    giving libjpeg-turbo's default pixels and bytes bit for bit;
+    giving libjpeg-turbo's default pixels and bytes bit for bit; with
+    ``cmyk=True`` (image files, as PIL reads them) also CMYK / YCCK;
   * ``NativeLMDBSource`` - random access to one decoded record;
   * ``NativeLMDBLoader`` - C++ worker threads producing decoded uint8
     [B, res, res, 3] batches.
@@ -40,7 +41,8 @@ CODEC_ERRORS = {
     -6: "JPEG sample precision other than 8 bits (12-bit) is not supported",
     -7: "lossless or hierarchical JPEG is not supported",
     -8: "JPEG with other than 1 or 3 components (CMYK / YCCK) is not "
-        "supported",
+        "supported here (LMDB records are RGB, as the JAX binding reads "
+        "them); image files decode it",
     -9: "JPEG sampling factors other than 1 or 2 per axis are not "
         "supported",
     -10: "corrupt JPEG: no Huffman code matches the data",
@@ -86,10 +88,10 @@ def load_library() -> ctypes.CDLL:
         lib.teio_lmdb_get.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
             ctypes.c_void_p, ctypes.c_long]
-        lib.teio_jpeg_decode.restype = ctypes.c_int
-        lib.teio_jpeg_decode.argtypes = [
-            ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int]
+        for fn in (lib.teio_jpeg_decode, lib.teio_jpeg_decode_cmyk):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int]
         lib.teio_jpeg_encode.restype = ctypes.c_long
         lib.teio_jpeg_encode.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -169,17 +171,20 @@ def jpeg_size(data: bytes) -> tuple[int, int]:
 
 
 def decode_jpeg(data: bytes, width: Optional[int] = None,
-                height: Optional[int] = None) -> np.ndarray:
+                height: Optional[int] = None, *,
+                cmyk: bool = False) -> np.ndarray:
     """JPEG bytes -> [H, W, 3] uint8 RGB.  ``width`` / ``height``, when
     given, must be the image's (else it raises); by default they are
-    read from the header."""
+    read from the header.  A 4-component (CMYK / YCCK) stream raises,
+    as the JAX binding refuses it, unless ``cmyk``: then it decodes to
+    the RGB of PIL's ``convert("RGB")``."""
     if width is None or height is None:
         width, height = jpeg_size(data)
     lib = load_library()
     out = np.empty((height, width, 3), np.uint8)
-    rc = lib.teio_jpeg_decode(data, len(data),
-                              out.ctypes.data_as(ctypes.c_void_p),
-                              width, height)
+    fn = lib.teio_jpeg_decode_cmyk if cmyk else lib.teio_jpeg_decode
+    rc = fn(data, len(data), out.ctypes.data_as(ctypes.c_void_p), width,
+            height)
     if rc != 0:
         raise ValueError(CODEC_ERRORS.get(rc, f"jpeg decode failed ({rc})"))
     return out

@@ -10,11 +10,12 @@ cosine of each pair).  Pairs run in fixed-size batches on one device;
 the last batch is padded and the padding's scores are dropped, so no
 file is skipped.
 
-Images are read without PIL (``utils/image.py::load_image``: PNG, BMP,
-or JPEG through the port's own codec) and resized with
-``resize_bilinear``, PIL's ``Image.BILINEAR``, when their size differs.
-``.webp`` files are paired as the JAX package pairs them but cannot be
-read: ``load_image`` raises naming the file.  The ID crop is
+Images are read without PIL (``utils/image.py::load_image``, which
+gives PIL's ``convert("RGB")`` pixels: PNG of every colour type, bit
+depth and interlace; JPEG, CMYK and YCCK included, through the port's
+own codec; WebP lossy, lossless, with alpha or animated (its first
+frame); uncompressed BMP) and resized with ``resize_bilinear``, PIL's
+``Image.BILINEAR``, when their size differs.  The ID crop is
 the training ID loss's (``train/coach.py::face_crop`` / ``resize_112``).
 """
 

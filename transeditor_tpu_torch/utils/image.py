@@ -1,8 +1,10 @@
 """Image conversion helpers, and image reading, writing and resizing
-without PIL: PNG through zlib, JPEG through the port's own codec
-(``data/native.py``), and PIL's LANCZOS and BILINEAR resizes.  PNG
-unfiltering and the resize's passes run in ``csrc/image_io.cpp``, built
-with g++ at first use."""
+without PIL or any image library: PNG through zlib, JPEG through the
+port's own codec (``data/native.py``), WebP through ``csrc/webp.cpp``,
+BMP, and PIL's LANCZOS and BILINEAR resizes.  Every reader gives what
+PIL's ``convert("RGB")`` gives.  PNG unfiltering, BMP and WebP decoding
+and the resize's passes run in ``csrc/image_io.cpp`` and
+``csrc/webp.cpp``, built with g++ at first use."""
 
 from __future__ import annotations
 
@@ -17,7 +19,6 @@ from typing import Optional
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # gray, RGB, gray+alpha, RGBA
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -119,7 +120,8 @@ def _native() -> ctypes.CDLL:
             from transeditor_tpu_torch.ops.cuda_build import (CSRC,
                                                               build_shared)
             lib = ctypes.CDLL(str(build_shared(
-                "image_io", CSRC / "image_io.cpp", "g++", GXX_FLAGS)))
+                "image_io", (CSRC / "image_io.cpp", CSRC / "webp.cpp"),
+                "g++", GXX_FLAGS)))
             lib.teimg_png_unfilter.restype = ctypes.c_long
             lib.teimg_png_unfilter.argtypes = [
                 ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
@@ -128,7 +130,8 @@ def _native() -> ctypes.CDLL:
             lib.teimg_resample.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_long] * 4,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
-            for name in ("teimg_bmp_info", "teimg_bmp_decode"):
+            for name in ("teimg_bmp_info", "teimg_bmp_decode",
+                         "teimg_webp_info", "teimg_webp_decode"):
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_long
                 fn.argtypes = [ctypes.c_char_p, ctypes.c_long,
@@ -141,57 +144,185 @@ def _ptr(a: np.ndarray) -> ctypes.c_void_p:
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _unfilter(rows: np.ndarray, w: int, c: int) -> np.ndarray:
-    """Undo PNG row filtering: [H, 1 + W*C] stored rows -> [H, W, C]."""
+def _unfilter(rows: np.ndarray, n: int, bpp: int) -> np.ndarray:
+    """Undo PNG row filtering: [H, 1 + N] stored rows -> [H, N] bytes,
+    each filter reading the byte ``bpp`` to the left (whole bytes, also
+    for samples under 8 bits)."""
     h = rows.shape[0]
     if not rows[:, 0].any():                       # filter 0 throughout
-        return rows[:, 1:].reshape(h, w, c)
+        return rows[:, 1:]
     rows = np.ascontiguousarray(rows)
-    out = np.empty((h, w, c), np.uint8)
-    bad = _native().teimg_png_unfilter(_ptr(rows), h, w * c, c, _ptr(out))
+    out = np.empty((h, n), np.uint8)
+    bad = _native().teimg_png_unfilter(_ptr(rows), h, n, bpp, _ptr(out))
     if bad:
         raise ValueError(f"PNG filter type {int(rows[bad - 1, 0])} is not "
                          f"0-4 (row {bad - 1})")
     return out
 
 
+# the bit depths each colour type allows (PNG spec, table 11.1)
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7 passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_samples(raw: memoryview, w: int, h: int, depth: int,
+                 c: int) -> tuple[np.ndarray, int]:
+    """The [h, w, c] samples (uint8, or uint16 at depth 16) of one
+    image or Adam7 pass at the start of ``raw``, and the bytes read."""
+    rowbytes = (w * c * depth + 7) // 8
+    size = h * (1 + rowbytes)
+    rows = np.frombuffer(raw[:size], np.uint8).reshape(h, 1 + rowbytes)
+    un = _unfilter(rows, rowbytes, max(1, c * depth // 8))
+    if depth == 16:
+        return un.view(">u2").reshape(h, w, c).astype(np.uint16), size
+    if depth < 8:
+        bits = np.unpackbits(un, axis=1).reshape(h, -1, depth)
+        un = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+            axis=2, dtype=np.uint8)[:, :w]
+    return un.reshape(h, w, c), size
+
+
+def _png_rgb(s: np.ndarray, depth: int, color: int,
+             palette: Optional[np.ndarray]) -> np.ndarray:
+    """[H, W, C] samples -> [H, W, 3] uint8 as PIL's ``convert("RGB")``
+    gives them: gray at 1, 2 and 4 bits scaled by 255, 85 and 17, 16-bit
+    gray clamped to 255 (mode ``I;16``), other 16-bit samples their high
+    byte, palette indices past ``PLTE`` black, alpha and ``tRNS``
+    dropped."""
+    if color == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette
+        return lut[s[..., 0]]
+    if depth == 16:
+        s = np.minimum(s, 255) if color == 0 else s >> 8
+    elif depth < 8:
+        s = s * {1: 255, 2: 85, 4: 17}[depth]
+    s = s.astype(np.uint8)
+    if color in (0, 4):
+        return np.repeat(s[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(s[..., :3])
+
+
 def load_png(path: str) -> np.ndarray:
-    """Read an 8-bit, non-interlaced gray, gray+alpha, RGB or RGBA PNG
-    as [H, W, 3] uint8 RGB (gray replicated, alpha dropped, as PIL's
-    ``convert("RGB")``).  Anything else (palette, 16-bit, interlaced)
-    raises ``ValueError``."""
+    """Read a PNG as [H, W, 3] uint8 RGB, as PIL's ``convert("RGB")``
+    does: every colour type at every bit depth the format allows (gray
+    1-16, RGB 8 / 16, palette 1-8, gray+alpha and RGBA 8 / 16), plain or
+    Adam7-interlaced (``_png_rgb`` says how each becomes RGB).  Ancillary
+    chunks are ignored; the CRCs of the chunks before the image data are
+    checked, as PIL checks them.  A file PIL refuses (truncated, corrupt,
+    a form outside the spec) raises ``ValueError`` naming the file."""
     with open(path, "rb") as f:
         data = f.read()
+    try:
+        return _decode_png(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def _is_chunk_name(kind: bytes) -> bool:
+    return len(kind) == 4 and all(
+        c == 95 or 48 <= c <= 57 or 65 <= c <= 90 or 97 <= c <= 122
+        for c in kind)
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> [H, W, 3] uint8, refusing what PIL refuses: chunks
+    before the image data are read whole and their CRCs checked; the
+    image data are the run of IDAT chunks that follows (the last one may
+    be cut short), and need only hold the image; after it, a chunk that
+    names itself must be whole, up to IEND."""
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG")
-    pos, header, idat = 8, None, []
+        raise ValueError("not a PNG")
+    pos, header, palette = 8, None, None
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("truncated PNG: no image data")
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if not _is_chunk_name(kind):
+            raise ValueError(f"broken PNG file (chunk {kind!r})")
+        if kind == b"IDAT":
+            break
+        body = data[pos + 8:pos + 8 + n]
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(body) != n or len(crc) != 4:
+            raise ValueError(f"truncated {kind!r} chunk")
+        if crc != struct.pack(">I", zlib.crc32(kind + body)):
+            raise ValueError(f"bad CRC in the {kind!r} chunk")
+        if kind == b"IHDR":
+            if n < 13:
+                raise ValueError("truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            if n % 3 or not 0 < n <= 768:
+                raise ValueError(f"PLTE of {n} bytes")
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IEND":
+            raise ValueError("PNG without image data")
+        pos += 12 + n
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color, _, filt, interlace = header
+    # as PIL: the compression byte is not looked at, any interlace byte
+    # but 0 means Adam7
+    if color not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[color] or filt:
+        raise ValueError(f"a PNG form outside the spec (bit depth {depth}, "
+                         f"colour type {color}, filter method {filt})")
+    if color == 3 and palette is None:     # PIL reads it all black
+        palette = np.zeros((0, 3), np.uint8)
+    if not 0 < w < 2 ** 31 or not 0 < h < 2 ** 31:
+        raise ValueError(f"PNG of {w}x{h} pixels")
+    c = _PNG_CHANNELS[color]
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    dims = [((w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy)
+            for x0, y0, dx, dy in passes]
+    need = sum(ph * (1 + (pw * c * depth + 7) // 8)
+               for pw, ph in dims if pw and ph)
+    idat = []                         # (body, offset after its CRC)
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if len(body) != n:
-            raise ValueError(f"{path}: truncated {kind!r} chunk")
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
+        if kind != b"IDAT":
             break
+        idat.append((data[pos + 8:pos + 8 + n], pos + 12 + n))
         pos += 12 + n
-    if header is None or not idat:
-        raise ValueError(f"{path}: PNG without IHDR or IDAT")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _PNG_CHANNELS or interlace:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray / RGB / "
-                         f"RGBA PNGs are read (bit depth {depth}, color "
-                         f"type {color}, interlace {interlace})")
-    c = _PNG_CHANNELS[color]
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size != h * (1 + w * c):
-        raise ValueError(f"{path}: {rows.size} pixel bytes for {w}x{h}x{c}")
-    img = _unfilter(rows.reshape(h, 1 + w * c), w, c)
-    if c <= 2:
-        return np.repeat(img[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
+    # zlib expands at most ~1032:1, so a header that claims more than the
+    # data could hold is corrupt: refused before anything is allocated
+    if need > 1100 * sum(len(b) for b, _ in idat) + 64:
+        raise ValueError(f"{w}x{h} pixels need {need} bytes, more than "
+                         f"the image data can hold")
+    inflate, raw = zlib.decompressobj(), b""
+    try:
+        for body, after in idat:
+            raw += inflate.decompress(body, need - len(raw))
+            if len(raw) >= need:
+                break
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data ({e})") from None
+    if len(raw) < need:
+        raise ValueError("truncated PNG: the image data end before the "
+                         "image does")
+    pos = after
+    while pos + 8 <= len(data):       # PIL's load_end
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if not _is_chunk_name(kind) or kind == b"IEND":
+            break
+        if pos + 8 + n > len(data):
+            raise ValueError(f"truncated {kind!r} chunk")
+        pos += 12 + n
+    raw = memoryview(raw)
+    if interlace:
+        img = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+        for (x0, y0, dx, dy), (pw, ph) in zip(passes, dims):
+            if pw and ph:
+                s, used = _png_samples(raw, pw, ph, depth, c)
+                img[y0::dy, x0::dx] = s
+                raw = raw[used:]
+    else:
+        img, _ = _png_samples(raw, w, h, depth, c)
+    return _png_rgb(img, depth, color, palette)
 
 
 # teimg_bmp_* error codes (csrc/image_io.cpp, BmpError)
@@ -228,23 +359,71 @@ def load_bmp(path: str) -> np.ndarray:
     return out
 
 
-def load_image(path: str) -> np.ndarray:
-    """A PNG, JPEG or BMP file as [H, W, 3] uint8 RGB, by its leading
-    bytes.  JPEG goes through the port's own codec (``data/native.py``:
-    baseline and progressive, libjpeg's pixels); any other format raises
-    ``ValueError`` naming the file."""
+# teimg_webp_* error codes (csrc/webp.cpp)
+_WEBP_ERRORS = {
+    -1: "not a WebP file, or a chunk layout libwebp rejects",
+    -2: "truncated WebP: the file ends before its RIFF size says",
+    -3: "corrupt or truncated VP8 (lossy) bitstream",
+    -4: "corrupt or truncated VP8L (lossless) bitstream",
+    -5: "corrupt ALPH (alpha) chunk",
+    -6: "WebP larger than PIL opens, or than its data can hold",
+    -7: "WebP without a frame",
+}
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """WebP bytes -> [H, W, 3] uint8 RGB, as PIL's ``convert("RGB")``
+    gives them (``csrc/webp.cpp``): lossy (VP8) with libwebp's fancy
+    upsampling and YUV->RGB, lossless (VP8L), either with an alpha
+    channel (dropped), and of an animation its first frame on a black
+    canvas.  What libwebp refuses raises ``ValueError``."""
+    info = np.zeros(2, np.int64)
+    rc = _native().teimg_webp_info(data, len(data), _ptr(info))
+    if rc == 0:
+        w, h = int(info[0]), int(info[1])
+        out = np.empty((h, w, 3), np.uint8)
+        rc = _native().teimg_webp_decode(data, len(data), _ptr(out))
+    if rc:
+        raise ValueError(_WEBP_ERRORS.get(rc, f"unreadable WebP ({rc})"))
+    return out
+
+
+def load_webp(path: str) -> np.ndarray:
+    """Read a WebP file as ``decode_webp`` decodes it; ``ValueError``
+    names the file."""
     with open(path, "rb") as f:
-        head = f.read(8)
-    if head == PNG_SIGNATURE:
+        data = f.read()
+    try:
+        return decode_webp(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def load_image(path: str) -> np.ndarray:
+    """A PNG, JPEG, WebP or BMP file as [H, W, 3] uint8 RGB, by its
+    leading bytes, as PIL's ``convert("RGB")`` gives it.  JPEG goes
+    through the port's own codec (``data/native.py``: baseline and
+    progressive, gray, YCbCr, CMYK and YCCK, libjpeg's pixels); any other
+    format, or a file PIL would refuse, raises ``ValueError`` naming the
+    file."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:8] == PNG_SIGNATURE:
         return load_png(path)
     if head[:2] == b"\xff\xd8":
         from transeditor_tpu_torch.data.native import decode_jpeg
         with open(path, "rb") as f:
-            return decode_jpeg(f.read())
+            data = f.read()
+        try:
+            return decode_jpeg(data, cmyk=True)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return load_webp(path)
     if head[:2] == b"BM":
         return load_bmp(path)
-    raise ValueError(f"{path}: only PNG and JPEG images and uncompressed "
-                     f"BMPs are read")
+    raise ValueError(f"{path}: only PNG and JPEG images, WebP and "
+                     f"uncompressed BMPs are read")
 
 
 # PIL's fixed-point resampling (Pillow's Resample.c, 8 bits a channel)
