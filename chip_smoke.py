@@ -1763,6 +1763,52 @@ CODEC_DECODE = {
 }
 
 
+# SHA-256 of the pixels the JAX binding (libjpeg-turbo 2.1.5 with
+# arithmetic decoding) gives each non-CMYK SOF9 / SOF10 fixture of
+# tests/image_forms/, which LMDB records may hold (tests/
+# test_torch_port_jpeg_arith.py recomputes them); and a SOF3 fixture,
+# which that binding, and so the LMDB path, refuses.
+LMDB_ARITH_SHA256 = {
+    "sof10_420_17x13.jpg":
+        "2e6cabfb2c4ac9ba1e0526cde0d70474058f9ab8bd7d8709eb78f0599f430480",
+    "sof10_420_1x1.jpg":
+        "df65f549a7bf7fa6ec07d9b5b3989d03ad9f59fb5d18eae77abfac9bc7c3d79e",
+    "sof10_420_33x65.jpg":
+        "2feecc12765337e7713c3311707aca522801a35e47a61af230ed9c88e852003e",
+    "sof10_420_restart_33x65.jpg":
+        "2feecc12765337e7713c3311707aca522801a35e47a61af230ed9c88e852003e",
+    "sof10_444_33x65.jpg":
+        "cda286e082cb808e3835efa7f4679fe0d0e353579550404b2bb800017e7213ec",
+    "sof10_444_dac_33x65.jpg":
+        "cda286e082cb808e3835efa7f4679fe0d0e353579550404b2bb800017e7213ec",
+    "sof10_gray_17x13.jpg":
+        "40d4c29b38e022b23c17526e4561cd438adca318b843483e2fe8f407ab9872f3",
+    "sof10_gray_1x1.jpg":
+        "cb3f91d54eee30e53e35b2b99905f70f169ed549fd78909d3dac2defc9ed8d3b",
+    "sof10_gray_33x65.jpg":
+        "bdcc3ab85f7a016ed0e7d232cfeb5b908ada6e7031423ce7ba61a9bab753d124",
+    "sof9_420_17x13.jpg":
+        "90c0ac1453d693542f37c81b2a2e315abf2a4fb4771803e635a3c5dd1a36b3ec",
+    "sof9_420_1x1.jpg":
+        "226b2b70ce3bd4d9374c539a099e8770142d31b5c3c0914eb15dc9d50680dbf7",
+    "sof9_420_33x65.jpg":
+        "a5fcfcd0b28a88e49651da58ce637664ecf8e5f46ef571e56d1727d4c5af46fc",
+    "sof9_420_restart_33x65.jpg":
+        "a5fcfcd0b28a88e49651da58ce637664ecf8e5f46ef571e56d1727d4c5af46fc",
+    "sof9_444_33x65.jpg":
+        "7fc266d95d3f202b6851ba964a2b1e4a390df79e61cb2e65a925dd9575746eaa",
+    "sof9_444_dac_33x65.jpg":
+        "7fc266d95d3f202b6851ba964a2b1e4a390df79e61cb2e65a925dd9575746eaa",
+    "sof9_gray_17x13.jpg":
+        "333c780e7288ed044e4b3ed6196c9c575d43daa017cd10a681b22d94d7b65666",
+    "sof9_gray_1x1.jpg":
+        "fb337d3432f9465ea0a23c33debf6525c68f21f95061a35ff08c271f6c8e176b",
+    "sof9_gray_33x65.jpg":
+        "49bb49772318e7f669c05d5e33e42b908dc38d39240c12daedc6f1496ce3f46f",
+}
+LMDB_REFUSED = "sof3_rgb_p1_33x65.jpg"
+
+
 def codec_phase(card: str, data: dict, train: dict) -> dict:
     """6e: the port's JPEG codec held to libjpeg-turbo's bytes and pixels
     through committed digests (this machine has no libjpeg), then its
@@ -1790,6 +1836,22 @@ def codec_phase(card: str, data: dict, train: dict) -> dict:
           f"and the pixels of {len(CODEC_DECODE)} decodes "
           f"({', '.join(CODEC_DECODE)}) equal libjpeg's digests",
           flush=True)
+    for name, want in LMDB_ARITH_SHA256.items():
+        px = native.decode_jpeg((IMAGE_FORMS / name).read_bytes())
+        got = sha(px.tobytes())
+        check(got == want, f"6e LMDB path {name}: sha256 {got}, the JAX "
+              f"binding's {want}")
+    try:
+        native.decode_jpeg((IMAGE_FORMS / LMDB_REFUSED).read_bytes())
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("lossless" in refused, f"6e LMDB path decoded {LMDB_REFUSED}: "
+          f"the JAX binding refuses SOF3 ({refused!r})")
+    print(f"6e LMDB path (decode_jpeg as the native loader calls it): "
+          f"{len(LMDB_ARITH_SHA256)} arithmetic-coded (SOF9 / SOF10) "
+          f"fixtures equal the JAX binding's digests; {LMDB_REFUSED} "
+          f"refused as it refuses it ({refused})", flush=True)
 
     def us(fn, reps: int) -> float:
         fn()
@@ -1802,6 +1864,7 @@ def codec_phase(card: str, data: dict, train: dict) -> dict:
     blobs = {n: native.encode_jpeg(img, 95) for n, img in imgs.items()}
     out = {"encode_digests": len(CODEC_ENCODE_SHA256),
            "decode_digests": len(CODEC_DECODE),
+           "lmdb_arith_digests": len(LMDB_ARITH_SHA256),
            "decode_us_256": us(lambda: native.decode_jpeg(blobs[256]), 100),
            "decode_us_1024": us(lambda: native.decode_jpeg(blobs[1024]),
                                 10),
@@ -1828,7 +1891,9 @@ def codec_phase(card: str, data: dict, train: dict) -> dict:
 IMAGE_FORMS = pathlib.Path(__file__).resolve().parent / "tests" / \
     "image_forms"
 FORMS_TIMED = ("webp_lossy_q75_256x256.webp", "webp_lossless_256x256.webp",
-               "jpeg_cmyk_baseline_420_256x256.jpg")
+               "jpeg_cmyk_baseline_420_256x256.jpg", "sof9_420_256x256.jpg",
+               "sof10_420_256x256.jpg", "sof3_rgb_p6_256x256.jpg",
+               "bmp_rle8_256x256.bmp")
 
 
 def image_forms_phase(fb, card: str, root: pathlib.Path, data: dict,
@@ -1841,10 +1906,11 @@ def image_forms_phase(fb, card: str, root: pathlib.Path, data: dict,
     from transeditor_tpu_torch.cli import prepare_data, train_gan
     from transeditor_tpu_torch.data import native
     from transeditor_tpu_torch.data.dataset import ImageFolderSource
-    from transeditor_tpu_torch.utils.image import decode_webp, load_image
+    from transeditor_tpu_torch.utils.image import (decode_bmp, decode_webp,
+                                                   load_image)
 
     digests = json.loads((IMAGE_FORMS / "digests.json").read_text())
-    check(len(digests) >= 90, f"6f: {len(digests)} fixtures")
+    check(len(digests) >= 161, f"6f: {len(digests)} fixtures")
     kinds: dict = {}
     for name, want in digests.items():
         px = load_image(str(IMAGE_FORMS / name))
@@ -1908,12 +1974,11 @@ def image_forms_phase(fb, card: str, root: pathlib.Path, data: dict,
 
     blobs = {name: (IMAGE_FORMS / name).read_bytes() for name in FORMS_TIMED}
     decode_us = {}
+    decoders = {".webp": decode_webp, ".bmp": decode_bmp,
+                ".jpg": lambda b: native.decode_jpeg(b, as_pil=True)}
     for name, blob in blobs.items():
-        if name.endswith(".webp"):
-            decode_us[name] = us(lambda b=blob: decode_webp(b))
-        else:
-            decode_us[name] = us(lambda b=blob: native.decode_jpeg(
-                b, cmyk=True))
+        fn = decoders[pathlib.Path(name).suffix]
+        decode_us[name] = us(lambda b=blob, fn=fn: fn(b))
     print(f"6f-3 decode ({card}): single thread, 100 reps each: "
           + ", ".join(f"{name} {t:.1f} us" for name, t in decode_us.items())
           + f"; 6e's q95 4:2:0 JPEG at 256px {codec['decode_us_256']:.1f} "

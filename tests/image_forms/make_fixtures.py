@@ -7,8 +7,10 @@ gives them.  The port's readers are held to these files and digests by
     python tests/image_forms/make_fixtures.py
 
 needs PIL with WebP (libwebp 1.6.0 as Pillow 12.1 bundles it; settings
-PIL cannot pass go through ``webp_encode.py``).  Re-running it rewrites
-every file; the tests read them as committed and do not run it.
+PIL cannot pass go through ``webp_encode.py``) and a C compiler with the
+system libjpeg (``jpeglib.h``, ``-ljpeg``) for ``arith_jpeg.c``.
+Re-running it rewrites every file; the tests read them as committed and
+do not run it.
 
 The forms:
   * WebP lossy (VP8) at qualities 0, 50, 75 and 100, methods 0 and 6;
@@ -23,9 +25,19 @@ The forms:
     (``pngforms.py``), some with tRNS and ancillary chunks;
   * CMYK and YCCK JPEG (Adobe transform 0 and 2), baseline and
     progressive, 4:4:4 and 4:2:0;
+  * arithmetic-coded JPEG (``arith_jpeg.c``: SOF9 sequential, SOF10
+    progressive): gray, 4:4:4, 4:2:0 and CMYK, with and without restart
+    markers, default and other DAC conditioning;
+  * 8-bit lossless JPEG (SOF3, ``lossless_jpeg.py``): predictors 1-7,
+    point transforms 0 and 2, gray, RGB and CMYK, restart intervals,
+    one scan a component, 4:2:0 and 2x2 gray factors, an Adobe marker;
+  * RLE8 and RLE4 BMP (``bmp_rle.py``): encoded and absolute runs,
+    end-of-line, delta, end-of-bitmap, an odd RLE4 absolute run, an odd
+    file offset, clipped runs, excess data, top-down rows, gray and short
+    palettes, RLE in a 1- and 4-bit file;
 each at 1x1, 17x13 and 33x65 (width x height) where the form has sizes,
-and at 256x256 for lossy, lossless and animated WebP and a 4:2:0 CMYK
-JPEG (the sizes chip_smoke times).
+and at 256x256 for lossy, lossless and animated WebP, a 4:2:0 CMYK JPEG,
+SOF9 and SOF10 4:2:0, SOF3 RGB and RLE8 (the sizes chip_smoke times).
 """
 
 from __future__ import annotations
@@ -34,7 +46,9 @@ import hashlib
 import io
 import json
 import struct
+import subprocess
 import sys
+import tempfile
 import zlib
 from pathlib import Path
 
@@ -44,6 +58,8 @@ from PIL import Image
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
+import bmp_rle  # noqa: E402
+import lossless_jpeg  # noqa: E402
 import pngforms  # noqa: E402
 from vp8_header import describe  # noqa: E402
 from webp_encode import encode  # noqa: E402
@@ -239,6 +255,148 @@ def jpeg_files() -> dict[str, bytes]:
     return out
 
 
+def arith_files() -> dict[str, bytes]:
+    """SOF9 / SOF10 through the system libjpeg (``arith_jpeg.c``)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = Path(tmp) / "arith_jpeg"
+        subprocess.run(["cc", "-O2", "-o", str(exe), str(HERE / "arith_jpeg.c"),
+                        "-ljpeg"], check=True)
+
+        def arith(img, sub="444", prog=0, restart=0, dac=(0, 1, 5), q=85):
+            raw = Path(tmp) / "in.raw"
+            raw.write_bytes(np.ascontiguousarray(img).tobytes())
+            h, w = img.shape[:2]
+            c = 1 if img.ndim == 2 else img.shape[2]
+            dst = Path(tmp) / "out.jpg"
+            subprocess.run([str(exe), str(w), str(h), str(c), sub, str(prog),
+                            str(restart), *map(str, dac), str(q), str(raw),
+                            str(dst)], check=True)
+            return dst.read_bytes()
+
+        for prog, sof in ((0, "sof9"), (1, "sof10")):
+            img = natural(33, 65, seed=20 + prog, channels=4, noise=3)
+            out[f"{sof}_gray_33x65.jpg"] = arith(img[..., 0], prog=prog)
+            out[f"{sof}_444_33x65.jpg"] = arith(img[..., :3], prog=prog)
+            out[f"{sof}_420_33x65.jpg"] = arith(img[..., :3], "420", prog)
+            out[f"{sof}_cmyk_420_33x65.jpg"] = arith(img, "420", prog)
+            out[f"{sof}_420_restart_33x65.jpg"] = arith(img[..., :3], "420",
+                                                        prog, restart=3)
+            out[f"{sof}_444_dac_33x65.jpg"] = arith(
+                img[..., :3], prog=prog, dac=(2, 6, 12) if prog else (0, 3, 40))
+            for w, h in SIZES[:2]:
+                small = natural(w, h, seed=w * h + prog)
+                out[f"{sof}_420_{w}x{h}.jpg"] = arith(small, "420", prog)
+                out[f"{sof}_gray_{w}x{h}.jpg"] = arith(small[..., 1], prog=prog)
+            out[f"{sof}_420_256x256.jpg"] = arith(
+                natural(256, 256, seed=30 + prog, noise=2), "420", prog, q=75)
+    return out
+
+
+def lossless_files() -> dict[str, bytes]:
+    """SOF3 written by ``lossless_jpeg.py``."""
+    enc = lossless_jpeg.encode_image
+    out = {}
+    img = natural(33, 65, seed=40, channels=4, noise=2)
+    for p in range(1, 8):
+        out[f"sof3_rgb_p{p}_33x65.jpg"] = enc(img[..., :3], p, 0)
+    for p in (1, 4, 7):
+        out[f"sof3_gray_p{p}_pt2_33x65.jpg"] = enc(img[..., 3], p, 2)
+    for w, h in SIZES[:2]:
+        small = natural(w, h, seed=w + h, noise=2)
+        out[f"sof3_rgb_p4_{w}x{h}.jpg"] = enc(small, 4, 0)
+        out[f"sof3_gray_p6_pt2_{w}x{h}.jpg"] = enc(small[..., 0], 6, 2)
+    out["sof3_rgb_p5_restart_33x65.jpg"] = enc(img[..., :3], 5, 0,
+                                                restart=33 * 2)
+    out["sof3_rgb_p7_scans_restart_33x65.jpg"] = enc(
+        img[..., :3], 7, 2, interleaved=False, restart=33 * 5)
+    out["sof3_cmyk_p3_33x65.jpg"] = enc(img, 3, 0)
+    out["sof3_rgb_p2_adobe_17x13.jpg"] = enc(
+        img[:13, :17, :3], 2, 0, app=lossless_jpeg.segment(
+            0xEE, b"Adobe\0\x64\0\0\0\0\0"))
+    y = img[..., 0]
+    out["sof3_420_p1_33x65.jpg"] = lossless_jpeg.encode(
+        [y, img[::2, ::2, 1].copy(), img[::2, ::2, 2].copy()],
+        [(2, 2), (1, 1), (1, 1)], 1, 0, restart=17 * 4)
+    # a gray frame with 2x2 factors: each iMCU row holds two sample rows,
+    # and a restart every third row resets the prediction of a whole one
+    out["sof3_gray_v2_restart_33x65.jpg"] = lossless_jpeg.encode(
+        [y], [(2, 2)], 4, 0, restart=33 * 3)
+    out["sof3_rgb_p6_256x256.jpg"] = enc(
+        natural(256, 256, seed=41, noise=0), 6, 0)
+    return out
+
+
+def rle_files() -> dict[str, bytes]:
+    """RLE8 / RLE4 BMPs written by ``bmp_rle.py``."""
+    out = {}
+    rng = np.random.RandomState(50)
+
+    def palette(n, end=None):
+        """A ramp between two colours (to ``end``, if given): a smooth
+        index image stays smooth, so its LMDB record keeps 40 dB."""
+        a, b = rng.randint(0, 256, (2, 3))
+        b = b if end is None else np.asarray(end)
+        t = np.linspace(0, 1, n)[:, None]
+        return [tuple(int(v) for v in row)
+                for row in np.round(a * (1 - t) + b * t)]
+
+    def indices(w, h, n, seed):
+        """A smooth index image, so that runs repeat."""
+        g = natural(w, h, seed=seed, channels=1, noise=0)[..., 0]
+        return (g.astype(np.int64) * n // 256 // 4 * 4).astype(np.uint8)
+
+    for rle4, tag in ((False, "rle8"), (True, "rle4")):
+        n = 16 if rle4 else 256
+        pal = palette(n)
+        for w, h in SIZES:
+            out[f"bmp_{tag}_{w}x{h}.bmp"] = bmp_rle.bmp(
+                bmp_rle.encode_rows(indices(w, h, n, w * h), rle4), w, h,
+                pal, rle4=rle4)
+        idx = indices(17, 13, n, 7)
+        out[f"bmp_{tag}_topdown_17x13.bmp"] = bmp_rle.bmp(
+            bmp_rle.encode_rows(idx, rle4, top_down=True), 17, 13, pal,
+            rle4=rle4, top_down=True)
+        # every escape: end-of-line leaving a row short, a delta, an
+        # absolute run ending on an odd offset, a run clipped at the row's
+        # end, an odd RLE4 absolute run, end-of-bitmap past the image
+        # (odd pixel-data offset: the word alignment follows the file)
+        items = [("run", 5, 3, 1), ("eol",), ("abs", [1, 2, 3, 4, 5]),
+                 ("delta", 3, 1), ("run", 40, 2, 5), ("eol",),
+                 ("abs", [7, 6, 5, 4, 3, 2, 1]), ("run", 9, 1, 2), ("eol",),
+                 ("abs", [9, 8, 7]), ("delta", 4, 2),
+                 ("abs", [1, 3, 5, 7, 9, 11, 13, 15, 2, 4, 6])]
+        # rows enough to fill the image, read in step or a byte off (no
+        # value byte is an escape code then)
+        for k in range(40):
+            items += [("eol",), ("run", 17, 3 + k % 13, 15 - k % 13)]
+        for gap in (0, 1):
+            out[f"bmp_{tag}_escapes_gap{gap}_17x13.bmp"] = bmp_rle.bmp(
+                bmp_rle.ops(items + [("eob",)], rle4) + b"\x07" * 9, 17, 13,
+                pal, rle4=rle4, gap=gap)
+        # a gray palette (mode "L": indices past it read as gray) and a
+        # short one (indices past it black)
+        gidx = indices(33, 65, 256 if not rle4 else 16, 8)
+        out[f"bmp_{tag}_gray_palette_33x65.bmp"] = bmp_rle.bmp(
+            bmp_rle.encode_rows(gidx, rle4), 33, 65,
+            [(i, i, i) for i in range(n // 2)], rle4=rle4,
+            colors_used=n // 2)
+        short = n // 2 + 3        # dark at its end: black past it
+        out[f"bmp_{tag}_short_palette_33x65.bmp"] = bmp_rle.bmp(
+            bmp_rle.encode_rows(gidx, rle4), 33, 65,
+            palette(short, end=(4, 4, 4)), rle4=rle4, colors_used=short)
+    idx = indices(17, 13, 2, 9)
+    out["bmp_rle8_in_1bit_17x13.bmp"] = bmp_rle.bmp(
+        bmp_rle.encode_rows(idx + 1, False), 17, 13, palette(2), bpp=1)
+    out["bmp_rle4_in_8bit_17x13.bmp"] = bmp_rle.bmp(
+        bmp_rle.encode_rows(indices(17, 13, 16, 10), True), 17, 13,
+        palette(256), rle4=True, bpp=8)
+    out["bmp_rle8_256x256.bmp"] = bmp_rle.bmp(
+        bmp_rle.encode_rows(indices(256, 256, 256, 11), False), 256, 256,
+        palette(256))
+    return out
+
+
 def adobe_transform(data: bytes, transform: int) -> bytes:
     """The Adobe APP14 transform byte set: PIL (libjpeg) then reads the
     same scans as YCCK (2) or CMYK (0)."""
@@ -286,10 +444,11 @@ def check_forms(files: dict[str, bytes]) -> None:
 
 
 def main() -> None:
-    files = {**webp_files(), **png_files(), **jpeg_files()}
+    files = {**webp_files(), **png_files(), **jpeg_files(), **arith_files(),
+             **lossless_files(), **rle_files()}
     check_forms(files)
     for old in HERE.iterdir():
-        if old.suffix in (".webp", ".png", ".jpg"):
+        if old.suffix in (".webp", ".png", ".jpg", ".bmp"):
             old.unlink()
     digests = {}
     for name, data in sorted(files.items()):

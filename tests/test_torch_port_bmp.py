@@ -8,7 +8,8 @@ ones), 16 (5-5-5), 24 and 32 bits; BI_BITFIELDS at 16 bits (5-6-5,
 5-5-5) and 32 bits (masks after a 40-byte header, or inside a V4 / V5
 header, with an alpha mask); rows bottom-up and top-down, at widths
 whose rows need padding.  Every variant decodes equal to PIL's
-``convert("RGB")``, pixel for pixel; RLE files raise naming the file.
+``convert("RGB")``, pixel for pixel; an RLE stream cut short raises
+naming the file, as PIL raises.
 """
 
 import struct
@@ -123,11 +124,16 @@ def test_bmp_decodes_as_pil(tmp_path, name, width, height):
 
 @pytest.mark.parametrize("bpp,comp", [(8, 1), (4, 2)])
 def test_rle_raises_naming_the_file(tmp_path, bpp, comp):
-    rows = [bytes([2, 1, 0, 0]) for _ in range(2)]      # an RLE stream
+    """What is still refused of RLE, where PIL refuses it too: a stream
+    that ends (here after its first row of two) before the image does.
+    Whole RLE streams decode (``test_torch_port_bmp_rle.py``)."""
+    rows = [bytes([2, 1, 0, 0]), b""]       # one row of runs, then nothing
     path = write_bmp(tmp_path / f"rle{bpp}.bmp", rows, 2, bpp,
-                     compression=comp, palette=[(0, 0, 0)] * (1 << bpp))
-    with pytest.raises(ValueError, match=f"rle{bpp}.bmp.*compressed"):
+                     compression=comp, palette=[(9, 9, 9)] * (1 << bpp))
+    with pytest.raises(ValueError, match=f"rle{bpp}.bmp.*ends before"):
         load_image(str(path))
+    with pytest.raises(ValueError, match="not enough image data"):
+        Image.open(path).load()
 
 
 def test_truncated_bmp_raises_naming_the_file(tmp_path):

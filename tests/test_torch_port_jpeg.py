@@ -18,8 +18,9 @@ own; the port links no image library.  Here:
     ``tests/image_forms/`` and files written here), under ASan / UBSan
     too; LMDB records (``decode_jpeg``) still refuse them, as the JAX
     binding does;
-  * refusals: arithmetic coding, CMYK, 12-bit, block smoothing, a
-    truncated stream, each a ``ValueError`` naming the reason;
+  * refusals: hierarchical and lossless arithmetic frames, CMYK, 12-bit,
+    block smoothing, a truncated stream, each a ``ValueError`` naming
+    the reason;
   * robustness, in a child process: every truncation and 500 seeded
     single-byte corruptions give a ``ValueError`` or an image of the
     header's size, never a signal; and the codec built with ASan and
@@ -248,10 +249,18 @@ def _sof(data):
 
 
 def test_refuses_arithmetic_coding():
-    data = bytearray(_pil_jpeg(_image(16, 16, 0)))
-    data[_sof(data) + 1] = 0xC9                 # SOF9: arithmetic
-    with pytest.raises(ValueError, match="arithmetic"):
-        native.decode_jpeg(bytes(data))
+    """What is still refused of arithmetic coding, as libjpeg-turbo (and
+    so PIL) refuses it: hierarchical (SOF13) and lossless (SOF11)
+    frames.  Sequential and progressive ones decode
+    (``test_torch_port_jpeg_arith.py``)."""
+    for marker, reason in ((0xCD, "hierarchical"), (0xCB, "arithmetic")):
+        data = bytearray(_pil_jpeg(_image(16, 16, 0)))
+        data[_sof(data) + 1] = marker
+        for as_pil in (False, True):
+            with pytest.raises(ValueError, match=reason):
+                native.decode_jpeg(bytes(data), as_pil=as_pil)
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(bytes(data))).load()
 
 
 def test_refuses_twelve_bit_samples():
@@ -592,12 +601,12 @@ def test_cmyk_and_ycck_written_here_equal_pil(size, kw):
     for transform in (0, 2, 1):          # 1: libjpeg takes it for YCCK
         data[data.index(b"Adobe") + 11] = transform
         want = np.asarray(Image.open(io.BytesIO(bytes(data))).convert("RGB"))
-        got = native.decode_jpeg(bytes(data), cmyk=True)
+        got = native.decode_jpeg(bytes(data), as_pil=True)
         np.testing.assert_array_equal(got, want)
 
 
 def test_lmdb_records_still_refuse_cmyk_as_the_jax_binding():
-    """The LMDB path (``decode_jpeg`` without ``cmyk``, and the native
+    """The LMDB path (``decode_jpeg`` without ``as_pil``, and the native
     loader's C++ workers) refuses a 4-component record, as the JAX
     binding does (libjpeg cannot convert CMYK to RGB)."""
     data = (FIXTURES / "jpeg_cmyk_baseline_444_33x65.jpg").read_bytes()
@@ -605,20 +614,20 @@ def test_lmdb_records_still_refuse_cmyk_as_the_jax_binding():
         native.decode_jpeg(data)
     with pytest.raises(ValueError):
         jax_native.decode_jpeg(data, 33, 65)
-    assert native.decode_jpeg(data, cmyk=True).shape == (65, 33, 3)
+    assert native.decode_jpeg(data, as_pil=True).shape == (65, 33, 3)
 
 
-CMYK_HARNESS = FUZZ_HARNESS.replace(
+PIL_HARNESS = FUZZ_HARNESS.replace(
     "extern \"C\" int teio_jpeg_decode(", "extern \"C\" int "
-    "teio_jpeg_decode_cmyk(").replace(
-    "(teio_jpeg_decode(d.data()", "(teio_jpeg_decode_cmyk(d.data()")
+    "teio_jpeg_decode_pil(").replace(
+    "(teio_jpeg_decode(d.data()", "(teio_jpeg_decode_pil(d.data()")
 
 
 def test_cmyk_path_under_address_and_undefined_sanitizers(tmp_path):
     """The 4-component path under ASan and UBSan: 1,500 seeded 1-4 byte
     corruptions or truncations of each CMYK / YCCK fixture."""
-    assert "teio_jpeg_decode_cmyk(d.data()" in CMYK_HARNESS
-    (tmp_path / "fuzz.cpp").write_text(CMYK_HARNESS)
+    assert "teio_jpeg_decode_pil(d.data()" in PIL_HARNESS
+    (tmp_path / "fuzz.cpp").write_text(PIL_HARNESS)
     exe = tmp_path / "fuzz"
     subprocess.run(["g++", "-O1", "-g", "-std=c++17",
                     "-fsanitize=address,undefined",

@@ -7,12 +7,15 @@
 //                        resampling (Resample.c, 8 bits a channel): each
 //                        output pixel a weighted sum of a window of input
 //                        pixels, rounded and clipped to 8 bits;
-//   teimg_bmp_info,    - read an uncompressed Windows BMP: BI_RGB at 1, 4
-//   teimg_bmp_decode     and 8 bits (palette), 16 (5-5-5), 24 and 32
-//                        bits, and BI_BITFIELDS at 16 and 32 bits, rows
-//                        bottom-up or top-down, as RGB.  A channel of k
-//                        mask bits becomes v * 255 / (2^k - 1), as
-//                        Pillow's unpackers scale 5- and 6-bit fields.
+//   teimg_bmp_info,    - read a Windows BMP as Pillow 12.1 does: BI_RGB at
+//   teimg_bmp_decode     1, 4 and 8 bits (palette), 16 (5-5-5), 24 and 32
+//                        bits, BI_BITFIELDS at 16, 24 and 32 bits in
+//                        the layouts Pillow reads, and
+//                        BI_RLE8 / BI_RLE4 at 1, 4 and 8 bits (Pillow's
+//                        BmpRleDecoder, quirk for quirk), rows bottom-up
+//                        or top-down, as RGB.  A channel of k mask bits
+//                        becomes v * 255 / (2^k - 1), as Pillow's
+//                        unpackers scale 5- and 6-bit fields.
 //
 // A plain C interface, called through ctypes (which releases the GIL, so
 // the pipeline's reader threads run these in parallel).
@@ -49,10 +52,15 @@ enum BmpError : long {
   kBmpOk = 0,
   kBmpNotBmp = 1,         // no "BM" signature, or a header cut short
   kBmpHeader = 2,         // an info-header size this reader does not know
-  kBmpCompressed = 3,     // RLE, JPEG, PNG or another compression
+  kBmpCompressed = 3,     // JPEG, PNG or another compression Pillow refuses
   kBmpDepth = 4,          // a bit depth the compression does not allow
-  kBmpTruncated = 5,      // pixel rows (or the palette) past the file's end
-  kBmpSize = 6,           // width or height zero or beyond 2^15 * 2^15
+  kBmpTruncated = 5,      // pixel rows past the file's end
+  kBmpSize = 6,           // a side zero or beyond 2^15, or a bomb
+  kBmpRleShort = 7,       // an RLE stream that ends before the image does
+  kBmpRleMode1 = 8,       // RLE with a black-and-white palette (mode "1")
+  kBmpRleDelta = 9,       // an RLE delta escape cut short
+  kBmpPalette = 10,       // a palette of more than 256 colours
+  kBmpBitfields = 11,     // a bitfields layout Pillow does not read
 };
 
 struct Bmp {
@@ -64,7 +72,36 @@ struct Bmp {
   uint32_t masks[3] = {0, 0, 0};
   const uint8_t* palette = nullptr;
   long palette_entry = 4, colors = 0;
+  bool gray = false;            // palette entry i is (i, i, i): mode "L"
 };
+
+// Pillow reads BI_BITFIELDS in these layouts only (BmpImagePlugin's
+// SUPPORTED): 5-6-5 and 5-5-5 at 16 bits, BGR at 24, seven 8-bit
+// orders at 32 (with alpha from a V3+ header) and all-zero masks, read
+// as BGRA.
+bool pil_bitfields(long bpp, uint32_t* m, uint32_t a) {
+  if (bpp == 16)
+    return m[2] == 0x1F && ((m[0] == 0xF800 && m[1] == 0x7E0) ||
+                            (m[0] == 0x7C00 && m[1] == 0x3E0));
+  if (bpp == 24) return m[0] == 0xFF0000 && m[1] == 0xFF00 && m[2] == 0xFF;
+  static const uint32_t k32[8][4] = {
+      {0xFF0000, 0xFF00, 0xFF, 0x0},
+      {0xFF000000, 0xFF0000, 0xFF00, 0x0},
+      {0xFF000000, 0xFF00, 0xFF, 0x0},
+      {0xFF000000, 0xFF0000, 0xFF00, 0xFF},
+      {0xFF, 0xFF00, 0xFF0000, 0xFF000000},
+      {0xFF0000, 0xFF00, 0xFF, 0xFF000000},
+      {0xFF000000, 0xFF00, 0xFF, 0xFF0000},
+      {0x0, 0x0, 0x0, 0x0}};
+  for (const auto& k : k32)
+    if (m[0] == k[0] && m[1] == k[1] && m[2] == k[2] && a == k[3]) {
+      if (!m[0]) {                              // "BGRA"
+        m[0] = 0xFF0000; m[1] = 0xFF00; m[2] = 0xFF;
+      }
+      return true;
+    }
+  return false;
+}
 
 long parse_bmp(const uint8_t* d, long size, Bmp* b) {
   if (size < 26 || d[0] != 'B' || d[1] != 'M') return kBmpNotBmp;
@@ -89,40 +126,138 @@ long parse_bmp(const uint8_t* d, long size, Bmp* b) {
   }
   b->top_down = b->height < 0;
   if (b->top_down) b->height = -b->height;
+  // beyond 2^15 a side, or PIL's decompression-bomb limit (twice
+  // MAX_IMAGE_PIXELS): an RLE stream can claim any size
   if (b->width <= 0 || b->height <= 0 || b->width > 32768 ||
-      b->height > 32768)
+      b->height > 32768 || b->width * b->height > 2 * 89478485L)
     return kBmpSize;
   const long comp = b->compression;
-  if (comp != 0 && comp != 3) return kBmpCompressed;   // 3: BI_BITFIELDS
+  // 1, 2: BI_RLE8, BI_RLE4; 3: BI_BITFIELDS
+  if (comp < 0 || comp > 3) return kBmpCompressed;
   const long bpp = b->bpp;
-  if (comp == 0 && bpp != 1 && bpp != 4 && bpp != 8 && bpp != 16 &&
-      bpp != 24 && bpp != 32)
+  if (bpp != 1 && bpp != 4 && bpp != 8 && bpp != 16 && bpp != 24 &&
+      bpp != 32)
     return kBmpDepth;
-  if (comp == 3 && bpp != 16 && bpp != 32) return kBmpDepth;
+  // RLE runs hold palette indices (any depth of a palette image)
+  if ((comp == 1 || comp == 2) && bpp > 8) return kBmpDepth;
+  if (comp == 3 && bpp != 16 && bpp != 24 && bpp != 32) return kBmpDepth;
   long after = 14 + header;                     // palette or masks follow
   if (comp == 3) {
+    uint32_t alpha = 0;
     if (header == 40) {                         // masks after the header
       if (after + 12 > size) return kBmpTruncated;
       for (int c = 0; c < 3; ++c) b->masks[c] = le32(d + after + 4 * c);
       after += 12;
     } else {
       for (int c = 0; c < 3; ++c) b->masks[c] = le32(h + 36 + 4 * c);
+      if (header >= 56) alpha = le32(h + 48);
     }
+    if (!pil_bitfields(bpp, b->masks, alpha)) return kBmpBitfields;
   } else if (bpp == 16) {
     b->masks[0] = 0x7C00; b->masks[1] = 0x03E0; b->masks[2] = 0x001F;
   } else if (bpp >= 24) {
     b->masks[0] = 0xFF0000; b->masks[1] = 0xFF00; b->masks[2] = 0xFF;
   }
-  if (bpp <= 8) {
-    b->colors = colors > 0 && colors <= (1L << bpp) ? colors : 1L << bpp;
-    if (after + b->colors * b->palette_entry > size) return kBmpTruncated;
-    b->palette = d + after;
-  }
   b->pixels = le32(d + 10);
+  if (bpp <= 8) {
+    b->colors = colors > 0 ? colors : 1L << bpp;
+    if (b->colors > 256) return kBmpPalette;
+    // a palette image whose pixel offset omits its palette: Pillow
+    // reads the pixels after 4 bytes an entry
+    if (b->pixels == 14 + header) b->pixels += 4 * b->colors;
+    // Pillow reads the palette up to the file's end (entries past it
+    // are missing: black, and not gray)
+    const long avail = (size - after) / b->palette_entry;
+    b->palette = d + after;
+    b->gray = avail >= b->colors;
+    if (b->colors > avail) b->colors = avail > 0 ? avail : 0;
+    // Pillow's grayscale test: entries (i, i, i), or black and white
+    for (long i = 0; b->gray && i < b->colors; ++i) {
+      const uint8_t* e = b->palette + i * b->palette_entry;
+      const long v = b->colors == 2 ? 255 * i : i;
+      if (e[0] != v || e[1] != v || e[2] != v) b->gray = false;
+    }
+  }
   b->stride = (b->width * bpp + 31) / 32 * 4;
+  if (comp == 1 || comp == 2) {
+    if (b->colors == 2 && b->gray) return kBmpRleMode1;
+    if (b->pixels > size) b->pixels = size;     // an empty stream
+    return kBmpOk;
+  }
   if (b->pixels < 0 || b->pixels + b->stride * b->height > size)
     return kBmpTruncated;
   return kBmpOk;
+}
+
+// Pillow's BmpRleDecoder: indices in stored order (rows bottom-up unless
+// top_down), as many as w * h; the count it produced is returned (less
+// than w * h: "not enough image data").  Its quirks kept: an encoded run
+// is clipped to the row, an absolute one is not; end-of-line and delta
+// fill with index 0; a delta escape skips two bytes and reads (right, up)
+// from the next two; an RLE4 absolute run of odd length n reads n / 2
+// bytes (n - 1 pixels) but moves x by n; an absolute run ends on an even
+// file offset.  -1: a delta escape cut short (Pillow raises).
+long bmp_rle(const uint8_t* d, long size, long pos, long w, long h,
+             bool rle4, uint8_t* idx) {
+  const long total = w * h;
+  long n = 0, x = 0;
+  auto put = [&](uint8_t v, long count) {
+    const long k = count < total - n ? count : total - n;
+    if (k > 0) std::memset(idx + n, v, static_cast<size_t>(k));
+    n += count;
+  };
+  while (n < total) {
+    if (pos + 2 > size) break;
+    long num = d[pos];
+    const uint8_t byte = d[pos + 1];
+    pos += 2;
+    if (num) {                                  // encoded run
+      if (x + num > w) num = w - x > 0 ? w - x : 0;
+      for (long i = 0; i < num; ++i)
+        put(rle4 ? (i % 2 ? byte & 15 : byte >> 4) : byte, 1);
+      x += num;
+    } else if (byte == 0) {                     // end of line
+      if (n % w) put(0, w - n % w);
+      x = 0;
+    } else if (byte == 1) {                     // end of bitmap
+      break;
+    } else if (byte == 2) {                     // delta
+      if (pos + 2 > size) break;
+      pos += 2;
+      if (pos + 2 > size) return -1;
+      put(0, d[pos] + d[pos + 1] * w);
+      pos += 2;
+      x = n % w;
+    } else {                                    // absolute run
+      const long want = rle4 ? byte / 2 : byte;
+      const long got = want < size - pos ? want : size - pos;
+      for (long i = 0; i < got; ++i) {
+        const uint8_t v = d[pos + i];
+        if (rle4) {
+          put(v >> 4, 1);
+          put(v & 15, 1);
+        } else {
+          put(v, 1);
+        }
+      }
+      pos += got;
+      if (got < want) break;
+      x += byte;
+      if (pos % 2) ++pos;
+    }
+  }
+  return n;
+}
+
+// One palette index as RGB: the palette entry (stored B, G, R); past the
+// palette black, or in mode "L" (a gray palette) the index as gray.
+inline void palette_rgb(const Bmp& b, long idx, uint8_t* dst) {
+  if (idx >= b.colors) {
+    dst[0] = dst[1] = dst[2] = b.gray ? static_cast<uint8_t>(idx) : 0;
+  } else {
+    const uint8_t* e = b.palette + idx * b.palette_entry;
+    dst[0] = e[2]; dst[1] = e[1]; dst[2] = e[0];
+  }
 }
 
 // v of the mask's bits, scaled to 8 bits.
@@ -155,6 +290,19 @@ long teimg_bmp_decode(const uint8_t* data, long size, uint8_t* out) {
   const long rc = parse_bmp(data, size, &b);
   if (rc != kBmpOk) return rc;
   const long w = b.width, bpp = b.bpp;
+  if (b.compression == 1 || b.compression == 2) {
+    std::vector<uint8_t> idx(static_cast<size_t>(w * b.height));
+    const long n = bmp_rle(data, size, b.pixels, w, b.height,
+                           b.compression == 2, idx.data());
+    if (n < 0) return kBmpRleDelta;
+    if (n < w * b.height) return kBmpRleShort;
+    for (long y = 0; y < b.height; ++y) {
+      const long stored = b.top_down ? y : b.height - 1 - y;
+      for (long x = 0; x < w; ++x)
+        palette_rgb(b, idx[stored * w + x], out + (y * w + x) * 3);
+    }
+    return kBmpOk;
+  }
   for (long y = 0; y < b.height; ++y) {
     const long stored = b.top_down ? y : b.height - 1 - y;
     const uint8_t* row = data + b.pixels + stored * b.stride;
@@ -164,12 +312,7 @@ long teimg_bmp_decode(const uint8_t* data, long size, uint8_t* out) {
         const long bit = x * bpp;
         const long idx = (row[bit / 8] >> (8 - bpp - bit % 8)) &
                          ((1 << bpp) - 1);
-        if (idx >= b.colors) {                  // past the palette: black
-          dst[0] = dst[1] = dst[2] = 0;
-          continue;
-        }
-        const uint8_t* e = b.palette + idx * b.palette_entry;
-        dst[0] = e[2]; dst[1] = e[1]; dst[2] = e[0];   // stored B, G, R
+        palette_rgb(b, idx, dst);
         continue;
       }
       const uint8_t* p = row + x * (bpp / 8);

@@ -1,17 +1,28 @@
-// The port's JPEG codec: 8-bit baseline and progressive decode to RGB,
-// baseline encode from RGB; integer only, no library.
+// The port's JPEG codec: 8-bit decode to RGB of every frame type
+// libjpeg-turbo reads, baseline encode from RGB; integer only, no
+// library.
 //
 // Both directions reproduce libjpeg-turbo's default results bit for bit
-// (the library the JAX package's native runtime links):
+// (the library the JAX package's native runtime links, and PIL's):
 //   * decode = jpeg_read_header + out_color_space JCS_RGB with the
-//     defaults: dequantisation, the ISLOW IDCT of jidctint.c, the
-//     "fancy" upsampling of jdsample.c (h2v1, h1v2, h2v2), the
-//     fixed-point YCbCr->RGB of jdcolor.c; grayscale is replicated;
-//   * 4-component (CMYK / YCCK) decode, on request only, as PIL reads
-//     such a file: out_color_space JCS_CMYK (YCCK through jdcolor.c's
-//     ycck_cmyk_convert), PIL's inverted "CMYK;I" unpacking (Adobe
-//     polarity, assumed for every CMYK JPEG), then Pillow's cmyk2rgb
-//     (Convert.c);
+//     defaults: Huffman (SOF0-2) or arithmetic (SOF9-10, jdarith.c with
+//     jaricom.c's Qe table, DAC conditioning) entropy decoding,
+//     sequential or progressive; dequantisation and the ISLOW IDCT as
+//     libjpeg-turbo's SIMD code (which PIL and the JAX binding run)
+//     computes them, the "fancy" upsampling of jdsample.c (h2v1, h1v2,
+//     h2v2), the fixed-point YCbCr->RGB of jdcolor.c; grayscale is
+//     replicated;
+//   * on request only, as PIL (libjpeg-turbo 3.1) reads an image file:
+//     - 4-component (CMYK / YCCK) decode: out_color_space JCS_CMYK
+//       (YCCK through jdcolor.c's ycck_cmyk_convert), PIL's inverted
+//       "CMYK;I" unpacking (Adobe polarity, assumed for every CMYK
+//       JPEG), then Pillow's cmyk2rgb (Convert.c);
+//     - 8-bit lossless (SOF3, Huffman): jdlhuff.c's difference
+//       categories 0-16, jdpred.c's predictors 1-7 with the first-row
+//       rule at the start of the scan and after each restart (as
+//       jddiffct.c walks its iMCU rows), the point transform's left
+//       shift, upsampling by replication (no fancy upsampling in
+//       lossless mode) and no colour conversion (samples as stored);
 //   * encode = jpeg_set_defaults + jpeg_set_quality(q, TRUE): JFIF
 //     APP0 1.01, the Annex K tables scaled by jpeg_quality_scaling, 4:2:0
 //     YCbCr by jccolor.c / jcsample.c, the ISLOW FDCT of jfdctint.c,
@@ -19,14 +30,19 @@
 //     tables.
 //
 // What it refuses (each a distinct negative code, named by
-// data/native.py): arithmetic coding, precisions other than 8,
-// lossless / hierarchical frames, 2 components (4 unless asked for),
-// sampling ratios
-// other than 1 or 2 per axis, progressive files whose scans leave
-// coefficients 1-9 unrefined (libjpeg would apply block smoothing),
-// and any truncated or corrupt stream (libjpeg warns and pads those).
+// data/native.py): what libjpeg-turbo refuses (hierarchical frames,
+// lossless arithmetic coding (SOF11), precisions other than 8, lossless
+// frames whose colour space would need converting, a lossless restart
+// interval that is not a whole number of MCU rows), lossless frames
+// unless asked for (libjpeg-turbo 2.1, the JAX binding's, refuses them),
+// 2 components (4 unless asked for), sampling ratios other than 1 or 2
+// per axis in DCT frames, progressive files whose scans leave
+// coefficients 1-9 unrefined (libjpeg would apply block smoothing), and
+// any truncated or corrupt stream on which libjpeg warns and pads or
+// substitutes data (a bad Huffman code, data past a marker, a bad
+// arithmetic code).
 //
-// C ABI: teio_jpeg_decode, teio_jpeg_decode_cmyk, teio_jpeg_encode.
+// C ABI: teio_jpeg_decode, teio_jpeg_decode_pil, teio_jpeg_encode.
 
 #include <algorithm>
 #include <cstddef>
@@ -43,9 +59,9 @@ enum : int {
   E_SIZE = -2,         // the frame's size is not the caller's
   E_NOT_JPEG = -3,     // no SOI at the start
   E_TRUNCATED = -4,    // data ends before the image does (or no EOI)
-  E_ARITHMETIC = -5,   // SOF9-15: arithmetic coding
+  E_ARITHMETIC = -5,   // SOF11: lossless arithmetic coding
   E_PRECISION = -6,    // 12-bit or other non-8-bit samples
-  E_LOSSLESS = -7,     // SOF3 / SOF5-7 / DHP / EXP: lossless, hierarchical
+  E_LOSSLESS = -7,     // SOF3 where not asked for (LMDB records)
   E_COMPONENTS = -8,   // not 1 or 3 components (nor 4 when allowed)
   E_SAMPLING = -9,     // a sampling ratio other than 1 or 2 per axis
   E_HUFFMAN = -10,     // no Huffman code matches the data
@@ -56,6 +72,10 @@ enum : int {
   E_NO_IMAGE = -15,    // EOI before a frame and a scan
   E_COEFFICIENT = -16, // a run of coefficients past the end of a block
   E_ARGS = -17,        // encode: bad size or buffer
+  E_HIERARCHICAL = -18,  // SOF5-7, SOF13-15, DHP, EXP
+  E_ARITH_CODE = -19,  // arithmetic data libjpeg warns on and drops
+  E_CONVERSION = -20,  // lossless: a colour space that needs converting
+  E_RESTART = -21,     // lossless: restarts not at whole MCU rows
 };
 
 struct Fail {
@@ -152,18 +172,12 @@ static inline int64_t descale(int64_t x, int n) {
 // ===========================================================================
 // Decoder
 
-// libjpeg's post-IDCT range limit: an index masked to 10 bits, read as
-// signed, plus 128, clamped to 0..255 (prepare_range_limit_table)
+// the colour conversions' fixed-point tables
 struct Tables {
-  uint8_t idct_limit[1024];
   int cr_r[256], cb_b[256], cr_g[256], cb_g[256];  // jdcolor.c
   int y_r[256], y_g[256], y_b[256];                // jccolor.c
   int cb_r[256], cb_g_e[256], cbcr_b[256], cr_g_e[256], cr_b[256];
   Tables() {
-    for (int x = 0; x < 1024; ++x) {
-      int s = x < 512 ? x : x - 1024;
-      idct_limit[x] = uint8_t(std::min(255, std::max(0, s + 128)));
-    }
     constexpr int SCALEBITS = 16;
     constexpr int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
     auto fix = [](double v) { return int64_t(v * 65536.0 + 0.5); };
@@ -205,9 +219,10 @@ struct DHuff {
   int32_t maxcode[17] = {};
   int32_t valoffset[17] = {};
   uint16_t look[512] = {};  // 9-bit lookahead: (length << 8) | symbol
+  int max_sym = 0;          // a DC table's symbols are 0-15 (0-16 lossless)
 
   // libjpeg's jpeg_make_d_derived_tbl; false where it would ERREXIT
-  bool derive(bool dc) {
+  bool derive() {
     uint8_t size[257];
     uint32_t code_of[257];
     int p = 0;
@@ -242,9 +257,8 @@ struct DHuff {
         for (int c = 1 << (9 - l); c > 0; --c)
           look[lb++] = uint16_t((l << 8) | vals[p]);
       }
-    if (dc)
-      for (int i = 0; i < n; ++i)
-        if (vals[i] > 15) return false;
+    max_sym = 0;
+    for (int i = 0; i < n; ++i) max_sym = std::max<int>(max_sym, vals[i]);
     return true;
   }
 };
@@ -329,6 +343,106 @@ struct Bits {
   }
 };
 
+// ITU T.81 Table D.2 (jaricom.c's jpeg_aritab): Qe << 16 | Next_Index_MPS
+// << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed
+// probability 0.5 of T.851
+static const uint32_t kQe[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// jdarith.c's decoder (T.81 D.2): the C and A registers and the byte
+// feed.  At a marker (p left on its FF) or at the end of the data it
+// reads zeros: arithmetic-coded data may end before its last decisions.
+struct Arith {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;          // bits left in c's low byte; -16: two bytes due
+  bool at_marker = false;
+
+  Arith(const uint8_t* p_, const uint8_t* e_) : p(p_), end(e_) {}
+
+  void restart() {
+    c = a = 0;
+    ct = -16;
+    at_marker = false;
+  }
+
+  int byte() {
+    if (at_marker) return 0;
+    if (p >= end) {
+      at_marker = true;
+      return 0;
+    }
+    const int b = *p++;
+    if (b != 0xFF) return b;
+    while (p < end && *p == 0xFF) ++p;  // fill bytes
+    if (p < end && *p == 0x00) {        // FF 00: one FF data byte
+      ++p;
+      return 0xFF;
+    }
+    --p;  // on the marker's (last) FF, or at the end
+    at_marker = true;
+    return 0;
+  }
+
+  // one binary decision with statistics bin *st
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalise, D.2.6
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // two bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kQe[sv & 0x7F];
+    const uint8_t nl = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    const uint8_t nm = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < int64_t(qe)) {  // conditional LPS exchange
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {  // conditional MPS exchange
+      if (a < int64_t(qe)) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 static inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v + (-(1 << s) + 1) : v;
 }
@@ -367,7 +481,11 @@ struct Comp {
   int16_t q[64] = {};            // latched at its first scan
   bool latched = false;
   int coef_bits[64];             // progressive: Al of the last scan, -1
-  int pred = 0;
+  int pred = 0;                  // DC prediction (last_dc_val)
+  int dc_context = 0;            // arithmetic: DC conditioning category
+  std::vector<uint8_t> samples;  // lossless: dh rows of dw samples
+  std::vector<int> undiff;       // lossless: the last row undifferenced
+  bool first_row = true;         // lossless: the next row restarts
 };
 
 struct Decoder {
@@ -378,6 +496,11 @@ struct Decoder {
   DHuff dc[4], ac[4];
   int restart_interval = 0;
   bool have_frame = false, progressive = false, defaults_set = false;
+  bool arith = false, lossless = false;
+  // arithmetic conditioning (DAC; reset at SOI to L 0, U 1, K 5) and
+  // the statistics bins of jdarith.c
+  uint8_t dc_L[16], dc_U[16], ac_K[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
   int W = 0, H = 0, nf = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Comp comp[4];
   bool jfif = false, adobe = false;
@@ -385,10 +508,14 @@ struct Decoder {
   int scans = 0;
   int eobrun = 0;
   int expect_w, expect_h;
-  bool four_ok;                  // 4 components (CMYK / YCCK) decoded
+  bool as_pil;                   // 4 components and lossless decoded
 
-  Decoder(const uint8_t* d, size_t len, int w, int h, bool cmyk)
-      : data(d), end(d + len), expect_w(w), expect_h(h), four_ok(cmyk) {}
+  Decoder(const uint8_t* d, size_t len, int w, int h, bool pil)
+      : data(d), end(d + len), expect_w(w), expect_h(h), as_pil(pil) {
+    std::memset(dc_L, 0, sizeof dc_L);
+    std::memset(dc_U, 1, sizeof dc_U);
+    std::memset(ac_K, 5, sizeof ac_K);
+  }
 
   void read_sof(const uint8_t* b, int len, int marker) {
     if (have_frame) fail(E_CORRUPT);
@@ -399,10 +526,12 @@ struct Decoder {
     nf = b[5];
     if (len != 6 + 3 * nf) fail(E_CORRUPT);
     if (nf == 0 || H == 0 || W == 0) fail(E_CORRUPT);
-    if (nf != 1 && nf != 3 && !(nf == 4 && four_ok)) fail(E_COMPONENTS);
+    if (nf != 1 && nf != 3 && !(nf == 4 && as_pil)) fail(E_COMPONENTS);
     if (W > 65500 || H > 65500) fail(E_TOO_LARGE);
     if (W != expect_w || H != expect_h) fail(E_SIZE);
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker >= 0xC9;
+    lossless = marker == 0xC3;
     hmax = vmax = 1;
     for (int i = 0; i < nf; ++i) {
       Comp& c = comp[i];
@@ -412,29 +541,44 @@ struct Decoder {
       c.tq = b[8 + 3 * i];
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
         fail(E_CORRUPT);
-      if (nf == 1) c.h = c.v = 1;  // one component: always one block an MCU
+      // one component: one block an MCU (a lossless scan keeps the
+      // frame's factors, which group its rows into iMCU rows)
+      if (nf == 1 && !lossless) c.h = c.v = 1;
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    mcux = (W + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (H + 8 * vmax - 1) / (8 * vmax);
-    int64_t blocks = 0;
+    // a data unit is a block of 8x8 samples, or one sample (lossless)
+    const int du = lossless ? 1 : 8;
+    mcux = (W + du * hmax - 1) / (du * hmax);
+    mcuy = (H + du * vmax - 1) / (du * vmax);
+    int64_t units = 0;
     for (int i = 0; i < nf; ++i) {
       Comp& c = comp[i];
-      if (hmax % c.h || vmax % c.v || hmax / c.h > 2 || vmax / c.v > 2)
+      // libjpeg upsamples any integral ratio by replication in lossless
+      // mode; the fancy upsampling of DCT frames takes 1 or 2
+      if (hmax % c.h || vmax % c.v ||
+          (!lossless && (hmax / c.h > 2 || vmax / c.v > 2)))
         fail(E_SAMPLING);
       c.dw = int((int64_t(W) * c.h + hmax - 1) / hmax);
       c.dh = int((int64_t(H) * c.v + vmax - 1) / vmax);
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + du - 1) / du;
+      c.bh = (c.dh + du - 1) / du;
       c.bwp = nf > 1 ? mcux * c.h : c.bw;
       c.bhp = nf > 1 ? mcuy * c.v : c.bh;
-      blocks += int64_t(c.bw) * c.bh;
+      units += int64_t(c.bw) * c.bh;
     }
-    // every block costs at least one bit of entropy-coded data
-    if (blocks > int64_t(end - data) * 8) fail(E_TOO_LARGE);
+    // A Huffman-coded data unit costs at least one bit.  Arithmetic
+    // coding can code one in far less: PIL's decompression-bomb limit
+    // (twice MAX_IMAGE_PIXELS) bounds those frames instead.
+    if (arith ? int64_t(W) * H > 2 * int64_t(89478485)
+              : units > int64_t(end - data) * 8)
+      fail(E_TOO_LARGE);
     for (int i = 0; i < nf; ++i) {
       Comp& c = comp[i];
+      if (lossless) {
+        c.samples.assign(size_t(c.dw) * c.dh, 0);
+        continue;
+      }
       c.coef.assign(size_t(c.bwp) * c.bhp * 64, 0);
       for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
     }
@@ -472,34 +616,36 @@ struct Decoder {
       idx &= ~0x10;
       if (idx < 0 || idx > 3) fail(E_CORRUPT);
       t.present = true;
-      t.valid = t.derive(!is_ac);
+      t.valid = t.derive();
       (is_ac ? ac : dc)[idx] = t;
     }
     if (len != 0) fail(E_CORRUPT);
   }
 
-  void set_std(DHuff& t, const StdHuff& s, bool is_dc) {
+  void set_std(DHuff& t, const StdHuff& s) {
     if (t.present) return;
     std::memcpy(t.bits, s.bits, 17);
     std::memset(t.vals, 0, sizeof t.vals);
     std::memcpy(t.vals, s.vals, size_t(s.n));
     t.present = true;
-    t.valid = t.derive(is_dc);
+    t.valid = t.derive();
   }
 
   // libjpeg-turbo sets the standard tables into empty slots 0 and 1
   // when its Huffman decoder starts (Motion-JPEG frames omit them)
   void std_tables() {
     if (defaults_set) return;
-    set_std(dc[0], kDcLuma, true);
-    set_std(ac[0], kAcLuma, false);
-    set_std(dc[1], kDcChroma, true);
-    set_std(ac[1], kAcChroma, false);
+    set_std(dc[0], kDcLuma);
+    set_std(ac[0], kAcLuma);
+    set_std(dc[1], kDcChroma);
+    set_std(ac[1], kAcChroma);
     defaults_set = true;
   }
 
-  static const DHuff& table(const DHuff* set, int i) {
-    if (i > 3 || !set[i].present || !set[i].valid) fail(E_TABLE);
+  static const DHuff& table(const DHuff* set, int i, int max_sym = 255) {
+    if (i > 3 || !set[i].present || !set[i].valid ||
+        set[i].max_sym > max_sym)
+      fail(E_TABLE);
     return set[i];
   }
 
@@ -611,12 +757,20 @@ struct Decoder {
     }
   }
 
-  // one scan's entropy-coded data, from p; returns where it stopped
-  const uint8_t* read_scan(const uint8_t* p, Comp** sc, int ns, int ss,
-                           int se, int ah, int al) {
-    Bits br(p, end);
-    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
-    eobrun = 0;
+  // the RSTn marker at or after p (stray bytes before it skipped, as
+  // libjpeg's next_marker does with a warning); returns the data after it
+  const uint8_t* expect_restart(const uint8_t* p, int n) {
+    const int mk = next_marker(p, end);
+    if (mk < 0) fail(E_TRUNCATED);
+    if (mk != 0xD0 + n) fail(E_CORRUPT);
+    return p;
+  }
+
+  // a DCT scan's MCUs in order, a restart every restart_interval MCUs:
+  // cd.restart(n) reads RSTn and resets, cd.unit(c, blk) decodes one
+  // block of component c
+  template <class Coder>
+  void walk_mcus(Coder& cd, Comp** sc, int ns) {
     const bool interleaved = ns > 1;
     const int64_t total = interleaved ? int64_t(mcux) * mcuy
                                       : int64_t(sc[0]->bw) * sc[0]->bh;
@@ -624,15 +778,8 @@ struct Decoder {
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval) {
         if (to_go == 0) {
-          br.reset();
-          const uint8_t* q = br.p;
-          int mk = next_marker(q, end);
-          if (mk < 0) fail(E_TRUNCATED);
-          if (mk != 0xD0 + next_rst) fail(E_CORRUPT);
-          br.p = q;
+          cd.restart(next_rst);
           next_rst = (next_rst + 1) & 7;
-          for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
-          eobrun = 0;
           to_go = restart_interval;
         }
         --to_go;
@@ -643,27 +790,276 @@ struct Decoder {
           Comp& c = *sc[i];
           for (int yy = 0; yy < c.v; ++yy)
             for (int xx = 0; xx < c.h; ++xx)
-              mcu_block(br, c, block(c, my * c.v + yy, mx * c.h + xx), ss,
-                        se, ah, al);
+              cd.unit(c, block(c, my * c.v + yy, mx * c.h + xx));
         }
       } else {
         Comp& c = *sc[0];
-        mcu_block(br, c, block(c, int(m / c.bw), int(m % c.bw)), ss, se,
-                  ah, al);
+        cd.unit(c, block(c, int(m / c.bw), int(m % c.bw)));
+      }
+    }
+  }
+
+  struct HuffmanScan {
+    Decoder& d;
+    Bits br;
+    Comp** sc;
+    int ns, ss, se, ah, al;
+    void restart(int n) {
+      br.reset();
+      br.p = d.expect_restart(br.p, n);
+      for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+      d.eobrun = 0;
+    }
+    void unit(Comp& c, int16_t* blk) {
+      if (!d.progressive)
+        d.seq_block(br, c, blk);
+      else if (ss == 0)
+        ah ? d.dc_refine(br, blk, al) : d.dc_first(br, c, blk, al);
+      else
+        ah ? d.ac_refine(br, c, blk, ss, se, al)
+           : d.ac_first(br, c, blk, ss, se, al);
+    }
+  };
+
+  // --- arithmetic (jdarith.c) -------------------------------------------
+  struct ArithScan {
+    Decoder& d;
+    Arith ar;
+    Comp** sc;
+    int ns, ss, se, ah, al;
+    uint8_t fixed = 113;  // the bin of fixed probability 0.5 (T.851)
+
+    // start_pass / process_restart: statistics, DC predictions and
+    // contexts of the scan's tables zeroed, the registers refilled
+    void reset() {
+      for (int i = 0; i < ns; ++i) {
+        Comp& c = *sc[i];
+        if (!d.progressive || (ss == 0 && ah == 0)) {
+          std::memset(d.dc_stats[c.td], 0, sizeof d.dc_stats[0]);
+          c.pred = 0;
+          c.dc_context = 0;
+        }
+        if (!d.progressive || ss)
+          std::memset(d.ac_stats[c.ta], 0, sizeof d.ac_stats[0]);
+      }
+      ar.restart();
+    }
+    void restart(int n) {
+      ar.p = d.expect_restart(ar.p, n);
+      reset();
+    }
+
+    // F.2.4.1: a DC difference, its context updated
+    int dc_diff(Comp& c) {
+      const int tbl = c.td;
+      uint8_t* st = d.dc_stats[tbl] + c.dc_context;
+      if (ar.decode(st) == 0) {
+        c.dc_context = 0;
+        return 0;
+      }
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = d.dc_stats[tbl] + 20;  // X1
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) fail(E_ARITH_CODE);
+          ++st;
+        }
+      }
+      if (m < (1 << d.dc_L[tbl]) >> 1)
+        c.dc_context = 0;            // zero difference category
+      else if (m > (1 << d.dc_U[tbl]) >> 1)
+        c.dc_context = 12 + sign * 4;  // large
+      else
+        c.dc_context = 4 + sign * 4;   // small
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      ++v;
+      return sign ? -v : v;
+    }
+
+    // F.2.4.2: coefficients k0..k1 (zigzag) until EOB, scaled by 2^al
+    void ac_coefs(Comp& c, int16_t* blk, int k0, int k1, int shift) {
+      const int tbl = c.ta;
+      for (int k = k0; k <= k1; ++k) {
+        uint8_t* st = d.ac_stats[tbl] + 3 * (k - 1);
+        if (ar.decode(st)) break;  // EOB
+        while (ar.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > k1) fail(E_ARITH_CODE);
+        }
+        const int sign = ar.decode(&fixed);
+        st += 2;
+        int m = ar.decode(st);
+        if (m != 0 && ar.decode(st)) {
+          m <<= 1;
+          st = d.ac_stats[tbl] + (k <= d.ac_K[tbl] ? 189 : 217);
+          while (ar.decode(st)) {
+            if ((m <<= 1) == 0x8000) fail(E_ARITH_CODE);
+            ++st;
+          }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+          if (ar.decode(st)) v |= m;
+        ++v;
+        if (sign) v = -v;
+        blk[kNatural[k]] = int16_t(uint32_t(v) << shift);
+      }
+    }
+
+    void ac_refine(Comp& c, int16_t* blk) {
+      const int tbl = c.ta;
+      const int p1 = 1 << al, m1 = -p1;
+      int kex = se;  // the previous stage's end of block
+      while (kex > 0 && !blk[kNatural[kex]]) --kex;
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* st = d.ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex && ar.decode(st)) break;  // EOB
+        for (;;) {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef) {  // previously nonzero: a correction bit
+            if (ar.decode(st + 2)) coef = int16_t(coef + (coef < 0 ? m1 : p1));
+            break;
+          }
+          if (ar.decode(st + 1)) {  // newly nonzero
+            coef = int16_t(ar.decode(&fixed) ? m1 : p1);
+            break;
+          }
+          st += 3;
+          if (++k > se) fail(E_ARITH_CODE);
+        }
+      }
+    }
+
+    void unit(Comp& c, int16_t* blk) {
+      if (!d.progressive) {
+        c.pred = (c.pred + dc_diff(c)) & 0xFFFF;
+        blk[0] = int16_t(c.pred);
+        ac_coefs(c, blk, 1, 63, 0);
+      } else if (ss == 0) {
+        if (ah == 0) {
+          c.pred = (c.pred + dc_diff(c)) & 0xFFFF;
+          blk[0] = int16_t(uint32_t(c.pred) << al);
+        } else if (ar.decode(&fixed)) {
+          blk[0] = int16_t(blk[0] | (1 << al));
+        }
+      } else if (ah == 0) {
+        ac_coefs(c, blk, ss, se, al);
+      } else {
+        ac_refine(c, blk);
+      }
+    }
+  };
+
+  // --- lossless (jddiffct.c, jdlhuff.c, jdpred.c) -------------------------
+  static int sample_diff(Bits& br, const DHuff& t) {
+    const int s = br.decode(t);
+    if (s == 0) return 0;
+    if (s == 16) return 32768;  // category 16 takes no extra bits
+    return extend(br.get(s), s);
+  }
+
+  // one row of component c from its differences: the first row after
+  // the scan's start or a restart from the left and 2^(P - Pt - 1), the
+  // others by the scan's predictor (the first column from above); then
+  // the point transform's left shift
+  static void undifference(Comp& c, const int* diff, int y, int psv,
+                           int al) {
+    std::vector<int>& row = c.undiff;   // the row above, then this one
+    const int w = c.dw;
+    int ra;
+    if (c.first_row) {
+      ra = (diff[0] + (1 << (8 - al - 1))) & 0xFFFF;
+      row[0] = ra;
+      for (int x = 1; x < w; ++x) row[x] = ra = (diff[x] + ra) & 0xFFFF;
+      c.first_row = false;
+    } else {
+      int rb = row[0], rc;
+      row[0] = ra = (diff[0] + rb) & 0xFFFF;
+      for (int x = 1; x < w; ++x) {
+        rc = rb;
+        rb = row[x];
+        int p;
+        switch (psv) {
+          case 1: p = ra; break;
+          case 2: p = rb; break;
+          case 3: p = rc; break;
+          case 4: p = ra + rb - rc; break;
+          case 5: p = ra + ((rb - rc) >> 1); break;
+          case 6: p = rb + ((ra - rc) >> 1); break;
+          default: p = (ra + rb) >> 1; break;
+        }
+        row[x] = ra = (diff[x] + p) & 0xFFFF;
+      }
+    }
+    uint8_t* out = c.samples.data() + size_t(y) * w;
+    for (int x = 0; x < w; ++x) out[x] = uint8_t(row[x] << al);
+  }
+
+  // iMCU row by iMCU row, as jddiffct.c's decompress_data: the
+  // differences of its MCU rows (a restart before any of them resets
+  // the prediction of the whole iMCU row), then its rows undifferenced
+  const uint8_t* read_lossless(const uint8_t* p, Comp** sc, int ns,
+                               int psv, int al) {
+    Bits br(p, end);
+    const bool inter = ns > 1;
+    const int mcus_row = inter ? mcux : sc[0]->dw;
+    if (restart_interval % mcus_row) fail(E_RESTART);
+    const int rows_per_restart = restart_interval / mcus_row;
+    std::vector<int> diff[4];
+    int stride[4];
+    for (int i = 0; i < ns; ++i) {
+      Comp& c = *sc[i];
+      stride[i] = inter ? mcux * c.h : c.dw;
+      diff[i].assign(size_t(stride[i]) * c.v, 0);
+      c.undiff.assign(size_t(c.dw), 0);
+      c.first_row = true;
+    }
+    const int imcu_rows = (H + vmax - 1) / vmax;
+    int rows_to_go = rows_per_restart, next_rst = 0;
+    for (int r = 0; r < imcu_rows; ++r) {
+      const Comp& c0 = *sc[0];
+      const int mcu_rows = inter ? 1 : std::min(c0.v, c0.dh - r * c0.v);
+      bool reset = false;
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart_interval && rows_to_go == 0) {
+          br.reset();
+          br.p = expect_restart(br.p, next_rst);
+          next_rst = (next_rst + 1) & 7;
+          rows_to_go = rows_per_restart;
+          reset = true;
+        }
+        for (int mx = 0; mx < mcus_row; ++mx) {
+          if (!inter) {
+            diff[0][size_t(y) * stride[0] + mx] =
+                sample_diff(br, dc[c0.td]);
+            continue;
+          }
+          for (int i = 0; i < ns; ++i) {
+            const Comp& c = *sc[i];
+            for (int yy = 0; yy < c.v; ++yy)
+              for (int xx = 0; xx < c.h; ++xx)
+                diff[i][size_t(yy) * stride[i] + mx * c.h + xx] =
+                    sample_diff(br, dc[c.td]);
+          }
+        }
+        --rows_to_go;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Comp& c = *sc[i];
+        if (reset) c.first_row = true;
+        const int rows = std::min(c.v, c.dh - r * c.v);
+        for (int y = 0; y < rows; ++y)
+          undifference(c, &diff[i][size_t(y) * stride[i]], r * c.v + y, psv,
+                       al);
       }
     }
     return br.p;
-  }
-
-  void mcu_block(Bits& br, Comp& c, int16_t* blk, int ss, int se, int ah,
-                 int al) {
-    if (!progressive)
-      seq_block(br, c, blk);
-    else if (ss == 0)
-      ah ? dc_refine(br, blk, al) : dc_first(br, c, blk, al);
-    else
-      ah ? ac_refine(br, c, blk, ss, se, al)
-         : ac_first(br, c, blk, ss, se, al);
   }
 
   const uint8_t* read_sos(const uint8_t* b, int len, const uint8_t* after) {
@@ -691,7 +1087,16 @@ struct Decoder {
       for (int i = 0; i < ns; ++i) per_mcu += sc[i]->h * sc[i]->v;
       if (per_mcu > 10) fail(E_SAMPLING);
     }
-    std_tables();
+    ++scans;
+    if (lossless) {
+      // jdlossls.c: Ss selects the predictor, Al is the point transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al > 7)
+        fail(E_PROGRESSION);
+      // no default tables here: jdlhuff.c requires the file's own
+      for (int i = 0; i < ns; ++i) table(dc, sc[i]->td, 16);
+      return read_lossless(after, sc, ns, ss, al);
+    }
+    if (!arith) std_tables();
     if (progressive) {
       bool bad = false;
       if (ss == 0) {
@@ -703,10 +1108,12 @@ struct Decoder {
       if (al > 13) bad = true;
       if (bad) fail(E_PROGRESSION);
       for (int i = 0; i < ns; ++i) {
-        if (ss == 0) {
-          if (ah == 0) table(dc, sc[i]->td);
-        } else {
-          table(ac, sc[i]->ta);
+        if (!arith) {
+          if (ss == 0) {
+            if (ah == 0) table(dc, sc[i]->td, 15);
+          } else {
+            table(ac, sc[i]->ta);
+          }
         }
         for (int k = ss; k <= se; ++k) sc[i]->coef_bits[k] = al;
       }
@@ -714,10 +1121,11 @@ struct Decoder {
       ss = 0;  // libjpeg only warns on other values in a sequential scan
       se = 63;
       ah = al = 0;
-      for (int i = 0; i < ns; ++i) {
-        table(dc, sc[i]->td);
-        table(ac, sc[i]->ta);
-      }
+      if (!arith)
+        for (int i = 0; i < ns; ++i) {
+          table(dc, sc[i]->td, 15);
+          table(ac, sc[i]->ta);
+        }
     }
     for (int i = 0; i < ns; ++i) {
       Comp& c = *sc[i];
@@ -726,8 +1134,33 @@ struct Decoder {
       for (int k = 0; k < 64; ++k) c.q[k] = int16_t(qt[c.tq][k]);
       c.latched = true;
     }
-    ++scans;
-    return read_scan(after, sc, ns, ss, se, ah, al);
+    eobrun = 0;
+    if (arith) {
+      ArithScan as{*this, Arith(after, end), sc, ns, ss, se, ah, al};
+      as.reset();
+      walk_mcus(as, sc, ns);
+      return as.ar.p;
+    }
+    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+    HuffmanScan hs{*this, Bits(after, end), sc, ns, ss, se, ah, al};
+    walk_mcus(hs, sc, ns);
+    return hs.br.p;
+  }
+
+  // DAC: arithmetic conditioning; L <= U for a DC table (jdmarker.c)
+  void read_dac(const uint8_t* b, int len) {
+    if (len % 2) fail(E_CORRUPT);
+    for (; len > 0; b += 2, len -= 2) {
+      const int index = b[0], val = b[1];
+      if (index >= 32) fail(E_CORRUPT);
+      if (index >= 16) {
+        ac_K[index - 16] = uint8_t(val);
+        continue;
+      }
+      dc_L[index] = uint8_t(val & 15);
+      dc_U[index] = uint8_t(val >> 4);
+      if (dc_L[index] > dc_U[index]) fail(E_CORRUPT);
+    }
   }
 
   // libjpeg-turbo's smoothing_ok: it smooths (so differs from a plain
@@ -766,13 +1199,18 @@ struct Decoder {
       const int len = seglen - 2;
       p += seglen;
       switch (m) {
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC9: case 0xCA:
           read_sof(b, len, m);
           break;
-        case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
-          fail(E_LOSSLESS);
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
+        case 0xC3:
+          if (!as_pil) fail(E_LOSSLESS);
+          read_sof(b, len, m);
+          break;
+        case 0xCB:
           fail(E_ARITHMETIC);
+        case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF:
+        case 0xDE: case 0xDF:
+          fail(E_HIERARCHICAL);
         case 0xC4:
           read_dht(b, len);
           break;
@@ -795,7 +1233,9 @@ struct Decoder {
             adobe_transform = b[11];
           }
           break;
-        case 0xCC:  // DAC: conditioning for arithmetic coding, unused
+        case 0xCC:
+          read_dac(b, len);
+          break;
         case 0xDC:  // DNL
         case 0xFE:  // COM
           break;
@@ -806,6 +1246,10 @@ struct Decoder {
     }
     if (!have_frame || scans == 0) fail(E_NO_IMAGE);
     if (progressive && would_smooth()) fail(E_SMOOTHING);
+    // libjpeg-turbo converts no colour space in lossless mode: a JFIF
+    // frame, or an Adobe one with a transform, would be YCbCr / YCCK
+    if (lossless && ((nf == 3 && jfif) || (nf > 1 && adobe && adobe_transform)))
+      fail(E_CONVERSION);
   }
 
   // jpeg_read_header's default_decompress_parms, for 3 components
@@ -818,112 +1262,118 @@ struct Decoder {
   }
 
   // --- pixels ---------------------------------------------------------------
+  // The ISLOW IDCT as libjpeg-turbo's SIMD code computes it
+  // (jidctint-sse2.asm / -avx2.asm, which PIL and the JAX binding run):
+  // jidctint.c's arithmetic, with 16-bit lanes where those have them.
+  // Dequantisation keeps the low 16 bits of the product (pmullw), the
+  // input sums in0 +- in4, in7 + in3, in5 + in1 wrap to 16 bits, the
+  // products and their sums are 32-bit, each pass's results saturate to
+  // 16 bits (packssdw) and the output to 8 (packsswb) before the +128.
+  // A block whose rows 1-7 are all zero takes the shortcut of the first
+  // pass, in0 << 2 in 16 bits.  For any coefficients a valid stream holds
+  // this is jidctint.c's result; on corrupt data (coefficients overflow
+  // 16 bits) it is the SIMD result, which the C code's wrap-around range
+  // limit would not give.
+  static inline int16_t wrap16(int32_t v) { return int16_t(uint16_t(v)); }
+  static inline int16_t sat16(int32_t v) {
+    return int16_t(v > 32767 ? 32767 : (v < -32768 ? -32768 : v));
+  }
+  // pmullw: the low 16 bits of a coefficient times its quantiser
+  static inline int16_t dequant(int16_t c, int16_t q) {
+    return int16_t(uint16_t(uint32_t(int32_t(c)) * uint16_t(q)));
+  }
+  // a 32-bit lane (uint32_t: paddd / psubd wrap) descaled by n (psrad)
+  static inline int32_t descale32(uint32_t v, int n) {
+    return int32_t(v + (uint32_t(1) << (n - 1))) >> n;
+  }
+  // pmaddwd: a * ka + b * kb, 16-bit inputs and constants, 32-bit lanes
+  static inline uint32_t madd(int32_t a, int32_t ka, int32_t b, int32_t kb) {
+    return uint32_t(a * ka) + uint32_t(b * kb);
+  }
+
+  // one 8-point pass over in[0..7] (16-bit), as the SIMD "dodct"
+  static inline __attribute__((always_inline)) void idct_1d(
+      const int16_t* in, uint32_t* out) {
+    // even part
+    const uint32_t tmp3e = madd(in[2], FIX_0_541196100 + FIX_0_765366865,
+                                in[6], FIX_0_541196100);
+    const uint32_t tmp2e = madd(in[2], FIX_0_541196100, in[6],
+                                FIX_0_541196100 - FIX_1_847759065);
+    const uint32_t tmp0e = uint32_t(int32_t(wrap16(in[0] + in[4]))
+                                    * (1 << CONST_BITS));
+    const uint32_t tmp1e = uint32_t(int32_t(wrap16(in[0] - in[4]))
+                                    * (1 << CONST_BITS));
+    const uint32_t tmp10 = tmp0e + tmp3e, tmp13 = tmp0e - tmp3e;
+    const uint32_t tmp11 = tmp1e + tmp2e, tmp12 = tmp1e - tmp2e;
+    // odd part: (in7, in1) and (in5, in3) paired, z3 = in7 + in3 and
+    // z4 = in5 + in1 in 16 bits
+    const int s3 = wrap16(in[7] + in[3]), s4 = wrap16(in[5] + in[1]);
+    const uint32_t z3 = madd(s3, FIX_1_175875602 - FIX_1_961570560, s4,
+                             FIX_1_175875602);
+    const uint32_t z4 = madd(s3, FIX_1_175875602, s4,
+                             FIX_1_175875602 - FIX_0_390180644);
+    const uint32_t tmp0 = madd(in[7], FIX_0_298631336 - FIX_0_899976223,
+                               in[1], -FIX_0_899976223) + z3;
+    const uint32_t tmp3 = madd(in[7], -FIX_0_899976223, in[1],
+                               FIX_1_501321110 - FIX_0_899976223) + z4;
+    const uint32_t tmp1 = madd(in[5], FIX_2_053119869 - FIX_2_562915447,
+                               in[3], -FIX_2_562915447) + z4;
+    const uint32_t tmp2 = madd(in[5], -FIX_2_562915447, in[3],
+                               FIX_3_072711026 - FIX_2_562915447) + z3;
+    out[0] = tmp10 + tmp3;
+    out[7] = tmp10 - tmp3;
+    out[1] = tmp11 + tmp2;
+    out[6] = tmp11 - tmp2;
+    out[2] = tmp12 + tmp1;
+    out[5] = tmp12 - tmp1;
+    out[3] = tmp13 + tmp0;
+    out[4] = tmp13 - tmp0;
+  }
+
   static void idct(const int16_t* in, const int16_t* q, uint8_t* out,
                    int stride) {
-    const uint8_t* limit = tables().idct_limit;
-    int ws[64];
+    int16_t ws[64];  // pass 1's 16-bit results, ws[8 * row + col]
+    bool col_ac[8], ac = false;
     for (int col = 0; col < 8; ++col) {
       const int16_t* ip = in + col;
-      const int16_t* qp = q + col;
-      int* wp = ws + col;
-      if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-          ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-        int dcval = (ip[0] * qp[0]) * (1 << PASS1_BITS);
-        for (int r = 0; r < 8; ++r) wp[8 * r] = dcval;
-        continue;
-      }
-      int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
-      int64_t z1 = (z2 + z3) * FIX_0_541196100;
-      int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-      int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-      z2 = ip[0] * qp[0];
-      z3 = ip[32] * qp[32];
-      int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-      int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-      int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-      tmp0 = ip[56] * qp[56];
-      tmp1 = ip[40] * qp[40];
-      tmp2 = ip[24] * qp[24];
-      tmp3 = ip[8] * qp[8];
-      z1 = tmp0 + tmp3;
-      z2 = tmp1 + tmp2;
-      z3 = tmp0 + tmp2;
-      int64_t z4 = tmp1 + tmp3;
-      int64_t z5 = (z3 + z4) * FIX_1_175875602;
-      tmp0 *= FIX_0_298631336;
-      tmp1 *= FIX_2_053119869;
-      tmp2 *= FIX_3_072711026;
-      tmp3 *= FIX_1_501321110;
-      z1 *= -FIX_0_899976223;
-      z2 *= -FIX_2_562915447;
-      z3 *= -FIX_1_961570560;
-      z4 *= -FIX_0_390180644;
-      z3 += z5;
-      z4 += z5;
-      tmp0 += z1 + z3;
-      tmp1 += z2 + z4;
-      tmp2 += z2 + z3;
-      tmp3 += z1 + z4;
-      const int sh = CONST_BITS - PASS1_BITS;
-      wp[0] = int(descale(tmp10 + tmp3, sh));
-      wp[56] = int(descale(tmp10 - tmp3, sh));
-      wp[8] = int(descale(tmp11 + tmp2, sh));
-      wp[48] = int(descale(tmp11 - tmp2, sh));
-      wp[16] = int(descale(tmp12 + tmp1, sh));
-      wp[40] = int(descale(tmp12 - tmp1, sh));
-      wp[24] = int(descale(tmp13 + tmp0, sh));
-      wp[32] = int(descale(tmp13 - tmp0, sh));
+      col_ac[col] = (ip[8] | ip[16] | ip[24] | ip[32] | ip[40] | ip[48] |
+                     ip[56]) != 0;
+      ac |= col_ac[col];
     }
-    const int sh = CONST_BITS + PASS1_BITS + 3;
-    for (int row = 0; row < 8; ++row) {
-      const int* wp = ws + 8 * row;
-      uint8_t* op = out + size_t(row) * stride;
-      if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 &&
-          wp[5] == 0 && wp[6] == 0 && wp[7] == 0) {
-        uint8_t v = limit[int(descale(wp[0], PASS1_BITS + 3)) & 1023];
-        std::memset(op, v, 8);
+    for (int col = 0; col < 8; ++col) {
+      const int16_t in0 = dequant(in[col], q[col]);
+      if (!col_ac[col]) {
+        // rows 1-7 of the whole block zero: the shortcut, in0 << 2 in 16
+        // bits; of this column only: the full pass's result, saturated
+        const int16_t v = ac ? sat16(in0 * (1 << PASS1_BITS))
+                             : wrap16(in0 * (1 << PASS1_BITS));
+        for (int r = 0; r < 8; ++r) ws[8 * r + col] = v;
         continue;
       }
-      int64_t z2 = wp[2], z3 = wp[6];
-      int64_t z1 = (z2 + z3) * FIX_0_541196100;
-      int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-      int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-      int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CONST_BITS);
-      int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CONST_BITS);
-      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-      int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-      tmp0 = wp[7];
-      tmp1 = wp[5];
-      tmp2 = wp[3];
-      tmp3 = wp[1];
-      z1 = tmp0 + tmp3;
-      z2 = tmp1 + tmp2;
-      z3 = tmp0 + tmp2;
-      int64_t z4 = tmp1 + tmp3;
-      int64_t z5 = (z3 + z4) * FIX_1_175875602;
-      tmp0 *= FIX_0_298631336;
-      tmp1 *= FIX_2_053119869;
-      tmp2 *= FIX_3_072711026;
-      tmp3 *= FIX_1_501321110;
-      z1 *= -FIX_0_899976223;
-      z2 *= -FIX_2_562915447;
-      z3 *= -FIX_1_961570560;
-      z4 *= -FIX_0_390180644;
-      z3 += z5;
-      z4 += z5;
-      tmp0 += z1 + z3;
-      tmp1 += z2 + z4;
-      tmp2 += z2 + z3;
-      tmp3 += z1 + z4;
-      op[0] = limit[int(descale(tmp10 + tmp3, sh)) & 1023];
-      op[7] = limit[int(descale(tmp10 - tmp3, sh)) & 1023];
-      op[1] = limit[int(descale(tmp11 + tmp2, sh)) & 1023];
-      op[6] = limit[int(descale(tmp11 - tmp2, sh)) & 1023];
-      op[2] = limit[int(descale(tmp12 + tmp1, sh)) & 1023];
-      op[5] = limit[int(descale(tmp12 - tmp1, sh)) & 1023];
-      op[3] = limit[int(descale(tmp13 + tmp0, sh)) & 1023];
-      op[4] = limit[int(descale(tmp13 - tmp0, sh)) & 1023];
+      int16_t c[8];
+      uint32_t o[8];
+      c[0] = in0;
+      for (int r = 1; r < 8; ++r)
+        c[r] = dequant(in[8 * r + col], q[8 * r + col]);
+      idct_1d(c, o);
+      for (int r = 0; r < 8; ++r)
+        ws[8 * r + col] = sat16(descale32(o[r], CONST_BITS - PASS1_BITS));
+    }
+    // packssdw then packsswb: saturation to 8 bits alone
+    auto pixel = [](uint32_t v) {
+      const int32_t s = descale32(v, CONST_BITS + PASS1_BITS + 3);
+      return uint8_t((s < -128 ? -128 : (s > 127 ? 127 : s)) + 128);
+    };
+    for (int row = 0; row < 8; ++row) {
+      const int16_t* w = ws + 8 * row;
+      uint8_t* op = out + size_t(row) * stride;
+      if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
+        std::memset(op, pixel(uint32_t(w[0] * (1 << CONST_BITS))), 8);
+        continue;
+      }
+      uint32_t o[8];
+      idct_1d(w, o);
+      for (int x = 0; x < 8; ++x) op[x] = pixel(o[x]);
     }
   }
 
@@ -933,6 +1383,11 @@ struct Decoder {
                     uint8_t* out) const {
     const int rh = hmax / c.h, rv = vmax / c.v;
     const int dw = c.dw;
+    if (lossless) {  // int_upsample: no fancy upsampling in lossless mode
+      const uint8_t* in = plane + size_t(y / rv) * stride;
+      for (int x = 0; x < W; ++x) out[x] = in[x / rh];
+      return;
+    }
     if (rv == 1) {
       const uint8_t* in = plane + size_t(y) * stride;
       if (rh == 1) {
@@ -990,6 +1445,11 @@ struct Decoder {
     int stride[4];
     for (int i = 0; i < nf; ++i) {
       Comp& c = comp[i];
+      if (lossless) {
+        stride[i] = c.dw;
+        planes[i].swap(c.samples);
+        continue;
+      }
       stride[i] = c.bw * 8;
       planes[i].assign(size_t(stride[i]) * c.bh * 8, 0);
       for (int by = 0; by < c.bh; ++by)
@@ -1002,7 +1462,7 @@ struct Decoder {
     std::vector<uint8_t> rows(size_t(4) * (W + 2));
     uint8_t* r[4] = {rows.data(), rows.data() + (W + 2),
                      rows.data() + 2 * (W + 2), rows.data() + 3 * (W + 2)};
-    const bool ycc = nf == 3 && is_ycc();
+    const bool ycc = nf == 3 && !lossless && is_ycc();
     // default_decompress_parms: Adobe transform 0 is CMYK, any other
     // YCCK; no Adobe marker, CMYK
     const bool ycck = nf == 4 && adobe && adobe_transform != 0;
@@ -1397,10 +1857,10 @@ struct Encoder {
 extern "C" {
 
 static int decode(const uint8_t* buf, long len, uint8_t* out, int w, int h,
-                  bool cmyk) {
+                  bool pil) {
   if (!buf || len < 0 || !out) return jpeg::E_ARGS;
   try {
-    jpeg::Decoder d(buf, size_t(len), w, h, cmyk);
+    jpeg::Decoder d(buf, size_t(len), w, h, pil);
     d.parse();
     d.render(out);
     return jpeg::OK;
@@ -1412,16 +1872,18 @@ static int decode(const uint8_t* buf, long len, uint8_t* out, int w, int h,
 }
 
 // RGB8 [h, w, 3] into out; 0, or a negative code (see the enum above).
-// The frame's size must be (w, h).  4-component streams are refused.
+// The frame's size must be (w, h).  What the JAX binding's libjpeg-turbo
+// 2.1 reads: 4-component and lossless streams are refused.
 int teio_jpeg_decode(const uint8_t* buf, long len, uint8_t* out, int w,
                      int h) {
   return decode(buf, len, out, w, h, false);
 }
 
-// As teio_jpeg_decode, and 4-component (CMYK / YCCK) streams decoded to
-// the RGB that PIL's convert("RGB") gives them.
-int teio_jpeg_decode_cmyk(const uint8_t* buf, long len, uint8_t* out, int w,
-                          int h) {
+// As teio_jpeg_decode, and what PIL (libjpeg-turbo 3.1) reads besides:
+// 4-component (CMYK / YCCK) and 8-bit lossless streams, decoded to the
+// RGB that PIL's convert("RGB") gives them.
+int teio_jpeg_decode_pil(const uint8_t* buf, long len, uint8_t* out, int w,
+                         int h) {
   return decode(buf, len, out, w, h, true);
 }
 

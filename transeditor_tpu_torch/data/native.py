@@ -3,9 +3,11 @@
 
   * ``NativeLMDB``       - read-only LMDB access (no lmdb package);
   * ``decode_jpeg`` / ``encode_jpeg`` - the port's own JPEG codec: 8-bit
-    baseline and progressive decode to RGB, baseline 4:2:0 encode, each
-    giving libjpeg-turbo's default pixels and bytes bit for bit; with
-    ``cmyk=True`` (image files, as PIL reads them) also CMYK / YCCK;
+    decode to RGB of Huffman and arithmetic-coded, sequential and
+    progressive frames, baseline 4:2:0 encode, each giving
+    libjpeg-turbo's default pixels and bytes bit for bit; with
+    ``as_pil=True`` (image files, as PIL reads them) also CMYK / YCCK
+    and 8-bit lossless (SOF3);
   * ``NativeLMDBSource`` - random access to one decoded record;
   * ``NativeLMDBLoader`` - C++ worker threads producing decoded uint8
     [B, res, res, 3] batches.
@@ -37,9 +39,11 @@ CODEC_ERRORS = {
     -2: "the JPEG's size is not the one asked for",
     -3: "not a JPEG (no SOI marker)",
     -4: "truncated JPEG: the data ends before the image does",
-    -5: "arithmetic-coded JPEG (SOF9-15) is not supported",
+    -5: "lossless arithmetic-coded JPEG (SOF11) is not supported (nor by "
+        "libjpeg-turbo)",
     -6: "JPEG sample precision other than 8 bits (12-bit) is not supported",
-    -7: "lossless or hierarchical JPEG is not supported",
+    -7: "lossless JPEG (SOF3) is not read from LMDB records (the JAX "
+        "binding's libjpeg-turbo 2.1 refuses it); image files decode it",
     -8: "JPEG with other than 1 or 3 components (CMYK / YCCK) is not "
         "supported here (LMDB records are RGB, as the JAX binding reads "
         "them); image files decode it",
@@ -54,6 +58,14 @@ CODEC_ERRORS = {
     -15: "JPEG without an image (no frame or no scan before EOI)",
     -16: "corrupt JPEG: coefficients run past the end of a block",
     -17: "invalid arguments to the JPEG codec",
+    -18: "hierarchical JPEG (SOF5-7, SOF13-15) is not supported (nor by "
+         "libjpeg-turbo)",
+    -19: "corrupt arithmetic-coded JPEG data (libjpeg would warn and drop "
+         "the rest of the scan)",
+    -20: "lossless JPEG whose colour space needs converting (JFIF, or an "
+         "Adobe transform): libjpeg-turbo converts none in lossless mode",
+    -21: "lossless JPEG whose restart interval is not a whole number of "
+         "MCU rows (libjpeg-turbo refuses it)",
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -88,7 +100,7 @@ def load_library() -> ctypes.CDLL:
         lib.teio_lmdb_get.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
             ctypes.c_void_p, ctypes.c_long]
-        for fn in (lib.teio_jpeg_decode, lib.teio_jpeg_decode_cmyk):
+        for fn in (lib.teio_jpeg_decode, lib.teio_jpeg_decode_pil):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_int]
@@ -172,17 +184,19 @@ def jpeg_size(data: bytes) -> tuple[int, int]:
 
 def decode_jpeg(data: bytes, width: Optional[int] = None,
                 height: Optional[int] = None, *,
-                cmyk: bool = False) -> np.ndarray:
+                as_pil: bool = False) -> np.ndarray:
     """JPEG bytes -> [H, W, 3] uint8 RGB.  ``width`` / ``height``, when
     given, must be the image's (else it raises); by default they are
-    read from the header.  A 4-component (CMYK / YCCK) stream raises,
-    as the JAX binding refuses it, unless ``cmyk``: then it decodes to
-    the RGB of PIL's ``convert("RGB")``."""
+    read from the header.  By default it reads what the JAX binding
+    (libjpeg-turbo 2.1) reads from LMDB records: a 4-component (CMYK /
+    YCCK) or lossless (SOF3) stream raises.  ``as_pil`` reads an image
+    file as PIL does: those decode too, to the RGB of PIL's
+    ``convert("RGB")``."""
     if width is None or height is None:
         width, height = jpeg_size(data)
     lib = load_library()
     out = np.empty((height, width, 3), np.uint8)
-    fn = lib.teio_jpeg_decode_cmyk if cmyk else lib.teio_jpeg_decode
+    fn = lib.teio_jpeg_decode_pil if as_pil else lib.teio_jpeg_decode
     rc = fn(data, len(data), out.ctypes.data_as(ctypes.c_void_p), width,
             height)
     if rc != 0:

@@ -329,34 +329,50 @@ def _decode_png(data: bytes) -> np.ndarray:
 _BMP_ERRORS = {
     1: "not a BMP, or its header is cut short",
     2: "a BMP info header of a size this reader does not know",
-    3: "compressed BMP (compression {3}: RLE or another) is not read; "
-       "only BI_RGB and BI_BITFIELDS",
+    3: "BMP compression {3} (JPEG, PNG or another) is not read, as PIL "
+       "reads none",
     4: "BMP of {2} bits a pixel at compression {3} is not read",
-    5: "BMP pixel rows or palette run past the end of the file",
+    5: "BMP pixel rows run past the end of the file",
     6: "BMP of {0}x{1} pixels",
+    7: "RLE BMP whose stream ends before the image does (PIL: not enough "
+       "image data)",
+    8: "RLE BMP with a black-and-white palette (PIL: unknown raw mode for "
+       "mode 1)",
+    9: "RLE BMP whose delta escape is cut short",
+    10: "BMP palette of more than 256 colours",
+    11: "a BMP bitfields layout PIL does not read",
 }
 
 
-def load_bmp(path: str) -> np.ndarray:
-    """Read an uncompressed BMP as [H, W, 3] uint8 RGB (as PIL's
-    ``convert("RGB")``): BI_RGB at 1, 4 and 8 bits (palette), 16 (5-5-5),
-    24 and 32 bits, and BI_BITFIELDS at 16 and 32 bits, stored
-    bottom-up or top-down (``csrc/image_io.cpp``).  RLE or any other
-    compression raises ``ValueError`` naming the file."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_bmp(data: bytes) -> np.ndarray:
+    """BMP bytes -> [H, W, 3] uint8 RGB, as PIL's ``convert("RGB")``
+    gives them: BI_RGB at 1, 4 and 8 bits (palette), 16 (5-5-5), 24 and
+    32 bits, BI_BITFIELDS at 16, 24 and 32 bits in the layouts PIL
+    reads, and RLE8 / RLE4 at 1, 4 and 8 bits as PIL's
+    ``BmpRleDecoder`` decodes them, quirks included
+    (``csrc/image_io.cpp``), stored bottom-up or top-down.  What PIL
+    refuses (another compression, an RLE stream that ends early, ...)
+    raises ``ValueError``."""
     info = np.zeros(4, np.int64)
     rc = _native().teimg_bmp_info(data, len(data), _ptr(info))
+    if rc == 0:
+        out = np.empty((int(info[1]), int(info[0]), 3), np.uint8)
+        rc = _native().teimg_bmp_decode(data, len(data), _ptr(out))
     if rc:
-        raise ValueError(f"{path}: " + _BMP_ERRORS.get(
-            rc, "unreadable BMP").format(*info.tolist()))
-    w, h = int(info[0]), int(info[1])
-    out = np.empty((h, w, 3), np.uint8)
-    rc = _native().teimg_bmp_decode(data, len(data), _ptr(out))
-    if rc:
-        raise ValueError(f"{path}: " + _BMP_ERRORS.get(
-            rc, "unreadable BMP").format(*info.tolist()))
+        raise ValueError(_BMP_ERRORS.get(rc, "unreadable BMP").format(
+            *info.tolist()))
     return out
+
+
+def load_bmp(path: str) -> np.ndarray:
+    """Read a BMP file as ``decode_bmp`` decodes it; ``ValueError``
+    names the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return decode_bmp(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 # teimg_webp_* error codes (csrc/webp.cpp)
@@ -402,10 +418,11 @@ def load_webp(path: str) -> np.ndarray:
 def load_image(path: str) -> np.ndarray:
     """A PNG, JPEG, WebP or BMP file as [H, W, 3] uint8 RGB, by its
     leading bytes, as PIL's ``convert("RGB")`` gives it.  JPEG goes
-    through the port's own codec (``data/native.py``: baseline and
-    progressive, gray, YCbCr, CMYK and YCCK, libjpeg's pixels); any other
-    format, or a file PIL would refuse, raises ``ValueError`` naming the
-    file."""
+    through the port's own codec (``data/native.py``: Huffman and
+    arithmetic-coded, baseline, extended and progressive, and 8-bit
+    lossless; gray, YCbCr, RGB, CMYK and YCCK; libjpeg's pixels); BMP
+    uncompressed, bitfields or RLE8 / RLE4; any other format, or a file
+    PIL would refuse, raises ``ValueError`` naming the file."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:8] == PNG_SIGNATURE:
@@ -415,15 +432,15 @@ def load_image(path: str) -> np.ndarray:
         with open(path, "rb") as f:
             data = f.read()
         try:
-            return decode_jpeg(data, cmyk=True)
+            return decode_jpeg(data, as_pil=True)
         except ValueError as e:
             raise ValueError(f"{path}: {e}") from None
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return load_webp(path)
     if head[:2] == b"BM":
         return load_bmp(path)
-    raise ValueError(f"{path}: only PNG and JPEG images, WebP and "
-                     f"uncompressed BMPs are read")
+    raise ValueError(f"{path}: only PNG and JPEG images, WebP and BMP "
+                     f"are read")
 
 
 # PIL's fixed-point resampling (Pillow's Resample.c, 8 bits a channel)
