@@ -57,14 +57,30 @@ torch.profiler (the order is at the end of this list).
      length every 3 steps (variants r1, path, r1, plain, then r1 + path
      + the spatial path regulariser), counted by role and path: every
      launch on the TMA path, adjoint and recompute launches present.
-     Then ms per step by variant (host clock around synchronised steps,
-     after one warm step each), launches per step by variant, peak
-     memory; and one reg step of a 64px model (max_channels 128,
+     Then launches per step by variant (one step after a warm one), ms
+     per step by variant (bench.py:168-203's recipe: the best of 3 runs
+     of 5 synchronised steps, host clock), peak memory; and one reg step of a 64px model (max_channels 128,
      n_trans 2, batch 4) on the card against the same step on the CPU,
      same weights and draws, at lr 0 and without cuDNN (see
      train_card_vs_cpu): metrics within 1e-4, gradients (Adam's first
      moments, beta1 = 0, and the root of the second moments) within 1e-4
      of each tensor's largest magnitude.
+  5c. bfloat16 training (a main path, counted): ``train()`` on the
+     full-width ``ModelConfig(dtype="bfloat16")`` (the JAX package's
+     training and bench.py configuration) at batch 16 with 5b's variants
+     and steps, every step finite, launches by role, path and type (the
+     forward's bf16; the backward works in float32, as autograd of the
+     plain version does, so its adjoint and recompute launches are
+     float32), all TMA; one R1 + path step with each launch replayed
+     through the plain version; ms per step by bench.py:168-203's recipe
+     (plain / dreg / greg / fullreg, best of 3 x 5 steps) beside 5b's
+     float32 figures by the same recipe, peak memory; at batch 16 the
+     kernel's launches as a bf16 step makes them (the forward in bf16,
+     the adjoint and recompute on float32 operands; graph replay) and the
+     composed backward on bf16 leaves, beside their bounds; one bf16 R1 +
+     path step of a 64px model card vs CPU within 3x a bfloat16 rounding
+     floor (inputs one bf16 ulp away), or 2**-7, per tensor and over all
+     tensors (``train_card_vs_cpu``).
   6. the command-line training path (a main path, counted), in
      build/smoke, removed at the end, on the JPEG / LMDB data path: the
      port's own codec (``csrc/jpeg.cpp``) and LMDB runtime
@@ -299,7 +315,7 @@ torch.profiler (the order is at the end of this list).
 
 Phase 1 builds the three kernel libraries at once, one ``nvcc`` each.
 The phases run in the order 1, 2a, 3, 11, 7a, 8a, 9a, 9b, 10a, 2b, 3b,
-4, 5a, 5b, 6, then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's
+4, 5a, 5b, 5c, 6, then 7a's profile, 7b, 7c, 8a's profile, 8b, 8c, 9a's
 profile, 9c, 9d, 9e, 10a's profile and replays, 10b, 10c, 10d, 10e, 12,
 13 (11d right after 3b).  The last three lines are the card line, the
 kernels line and
@@ -313,6 +329,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -738,6 +755,7 @@ def serve_phase(fb, dev, g) -> dict:
 
 TRAIN_BATCH = 16                   # TrainConfig(batch_size=16): path batch 8
 GRAD_BATCHES = (2, 16)             # backward held against plain
+BENCH_REPS, BENCH_STEPS = 3, 5     # bench.py:168-203: best of 3 x 5 steps
 VARIANTS = {"plain": (False, False, False), "r1": (True, False, False),
             "path": (False, True, False), "r1+path": (True, True, False),
             "r1+path+spatial": (True, True, True)}
@@ -864,31 +882,37 @@ def backward_vs_plain(fb, dev) -> dict:
     return worst
 
 
-def backward_times(fb, dev) -> list:
-    """Per main-path shape at float32, batch 16 (training), scale + bias
-    + act: device ms of the forward, adjoint and recompute launches (CUDA
-    graph replay), and of the whole composed backward and its plain
-    counterpart (events around autograd.grad calls)."""
+def backward_times(fb, dev, dtype=torch.float32) -> list:
+    """Per main-path shape at batch 16 (training), scale + bias + act, in
+    ``dtype``: device ms of the forward, adjoint and recompute launches
+    as a step in ``dtype`` makes them (CUDA graph replay; the backward
+    works in float32, so the adjoint and recompute operands are float32:
+    ``BF16_STEP_DTYPES``), and of the whole composed backward and its
+    plain counterpart (events around autograd.grad calls)."""
     g = torch.Generator(dev).manual_seed(6)
     n_sm = fb._sm_count(torch.cuda.current_device())
+    name = str(dtype).replace("torch.", "")
+    es = torch.finfo(dtype).bits // 8
     rows = []
     for h, c in MAIN_SHAPES:
         b, ho = TRAIN_BATCH, h - 1
-        x = torch.randn((b, h, h, c), generator=g, device=dev)
-        s = torch.rand((b, c), generator=g, device=dev) + 0.5
+        x = torch.randn((b, h, h, c), generator=g, device=dev).to(dtype)
+        s = (torch.rand((b, c), generator=g, device=dev) + 0.5).to(dtype)
         bias = torch.randn((c,), generator=g, device=dev)
-        gy = torch.randn((b, ho, ho, c), generator=g, device=dev)
+        gy = torch.randn((b, ho, ho, c), generator=g, device=dev).to(dtype)
         adj = fb.plan_tiles(b, ho, ho, c, torch.float32, (2, 2), n_sm=n_sm)
-        fwd = fb.plan_tiles(b, h, h, c, torch.float32, (1, 1), n_sm=n_sm)
+        fwd = fb.plan_tiles(b, h, h, c, dtype, (1, 1), n_sm=n_sm)
         check(adj.path == fwd.path == "tma",
-              f"{[b, h, h, c]} f32 planned {fwd.path} / adjoint {adj.path}")
+              f"{[b, h, h, c]} {name} planned {fwd.path} / adjoint "
+              f"{adj.path}")
+        g32, x32 = gy.float(), x.float()
         times = {
             "forward_ms": device_ms(lambda: fb.fused_blur4(
                 x, TAPS, (1, 1), scale=s, bias=bias, act=True)),
             "adjoint_ms": device_ms(lambda: fb.fused_blur4(
-                gy, TAPS[::-1], (2, 2), scale=s)),
+                g32, TAPS[::-1], (2, 2), scale=s)),
             "recompute_ms": device_ms(lambda: fb.fused_blur4(
-                x, TAPS, (1, 1)))}
+                x32, TAPS, (1, 1)))}
         for kernel, key, reps in ((True, "backward_ms", 10),
                                   (False, "plain_backward_ms", 3)):
             leaves = [t.clone().requires_grad_() for t in (x, s, bias)]
@@ -898,29 +922,32 @@ def backward_times(fb, dev) -> list:
             times[key] = time_ms(lambda: torch.autograd.grad(
                 y, leaves, gy, retain_graph=True), reps=reps, warm=1)
             del y, leaves
-        in_b, out_b = b * h * h * c * 4, b * ho * ho * c * 4
-        epi_b = b * c * 4 + c * 4
+        in_b, out_b = b * h * h * c * es, b * ho * ho * c * es
+        in32, out32 = b * h * h * c * 4, b * ho * ho * c * 4
+        epi_b = b * c * es + c * 4
         bound = {
             "forward_bound_ms": (in_b + out_b + epi_b) / HBM_BYTES_PER_S,
-            "adjoint_bound_ms": (out_b + in_b + b * c * 4) / HBM_BYTES_PER_S,
-            "recompute_bound_ms": (in_b + out_b) / HBM_BYTES_PER_S,
+            "adjoint_bound_ms": (out32 + in32 + b * c * es)
+            / HBM_BYTES_PER_S,
+            "recompute_bound_ms": (in32 + out32) / HBM_BYTES_PER_S,
             # a fused backward reads gy, y and x, writes grad_x (+ grad_s,
             # grad_b): the least any backward moves
             "backward_bound_ms": (2 * out_b + 2 * in_b + epi_b)
             / HBM_BYTES_PER_S}
-        row = {"in": [b, h, h, c], "adjoint_path": adj.path,
+        row = {"in": [b, h, h, c], "dtype": name, "adjoint_path": adj.path,
                **times, **{k: v * 1e3 for k, v in bound.items()}}
         rows.append(row)
-        print(f"  fused_blur4 f32 {[b, h, h, c]}: forward "
+        print(f"  fused_blur4 {name} {[b, h, h, c]}: forward "
               f"{times['forward_ms']:.4f} ms (bound "
-              f"{row['forward_bound_ms']:.4f}), adjoint "
+              f"{row['forward_bound_ms']:.4f}), adjoint (f32) "
               f"{times['adjoint_ms']:.4f} ms on the {adj.path} path (bound "
-              f"{row['adjoint_bound_ms']:.4f}), recompute "
-              f"{times['recompute_ms']:.4f} ms; composed backward "
+              f"{row['adjoint_bound_ms']:.4f}), recompute (f32) "
+              f"{times['recompute_ms']:.4f} ms (bound "
+              f"{row['recompute_bound_ms']:.4f}); composed backward "
               f"{times['backward_ms']:.4f} ms (fused bound "
               f"{row['backward_bound_ms']:.4f}), plain backward "
               f"{times['plain_backward_ms']:.4f} ms", flush=True)
-        del x, s, bias, gy
+        del x, s, bias, gy, g32, x32
         torch.cuda.empty_cache()
     return rows
 
@@ -995,21 +1022,18 @@ def train_phase(fb, dev, out_root: pathlib.Path, **cfg_kw) -> dict:
         flags = dict(do_d_reg=dr, do_g_reg=gr, do_spatial_reg=sr)
         rng.manual_seed(1)
         step(state, real, rng, **flags)                     # warm
-        ms = []
-        for k in range(2):
-            torch.cuda.synchronize()
-            fb.launches.reset()
-            t1 = time.perf_counter()
-            state, m = step(state, real, rng, **flags)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t1) * 1e3)
-            if k == 0:
-                launches = fb.launches.by_role_path
+        torch.cuda.synchronize()
+        fb.launches.reset()
+        state, m = step(state, real, rng, **flags)
+        torch.cuda.synchronize()
+        launches = fb.launches.by_role_path
+        state, ms, m = bench_ms(step, state, real, rng, flags)
         check(all(bool(torch.isfinite(v)) for v in m.values()),
               f"{name}: {m}")
         variants[name] = {"ms": ms, "launches": launches}
-        print(f"train step {name}: {ms[0]:.1f} / {ms[1]:.1f} ms; fused_blur4 "
-              f"launches {launches}", flush=True)
+        print(f"train step {name}: {ms:.1f} ms (best of {BENCH_REPS} x "
+              f"{BENCH_STEPS}); fused_blur4 launches {launches}",
+              flush=True)
     peak = torch.cuda.max_memory_allocated()
     print(f"train: peak memory allocated {peak / 2**30:.2f} GiB",
           flush=True)
@@ -1019,13 +1043,29 @@ def train_phase(fb, dev, out_root: pathlib.Path, **cfg_kw) -> dict:
             "variants": variants, "peak_bytes": peak, "losses": lines}
 
 
-def _grad_errors(run, ref) -> dict:
+def bench_ms(step, state, real, rng, flags: dict):
+    """bench.py:168-203's recipe: ms per step, the best of BENCH_REPS
+    runs of BENCH_STEPS synchronised steps.  Returns (state, ms, the last
+    step's metrics)."""
+    best = float("inf")
+    for _ in range(BENCH_REPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(BENCH_STEPS):
+            state, m = step(state, real, rng, **flags)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t1) / BENCH_STEPS * 1e3)
+    return state, best, m
+
+
+def _grad_errors(run, ref, zero_rel: float = 1e-6) -> dict:
     """Per optimizer, for Adam's first moment (the last phase's gradient:
     beta1 is 0) and the root of its second moment (an RMS over the
     step's phases): the worst per-tensor |a - b|_2 / |b|_2 and the worst
-    |a - b|_max / |b|_max, each with its tensor.  A tensor whose gradient
-    is 0 in exact arithmetic (an attention key bias: softmax ignores a
-    shift) is measured against 1e-6 of its optimizer's largest."""
+    |a - b|_max / |b|_max, each with its tensor, and the L2 error over
+    all the optimizer's tensors at once.  A tensor whose gradient is 0 in
+    exact arithmetic (an attention key bias: softmax ignores a shift) is
+    measured against ``zero_rel`` of its optimizer's largest."""
     out = {}
     for what, opt_a, opt_b, mod_a, mod_b in (
             ("G", run.opt_g, ref.opt_g, run.g, ref.g),
@@ -1038,43 +1078,70 @@ def _grad_errors(run, ref) -> dict:
             top2 = max(w.norm().item() for w in want)
             topm = max(w.abs().max().item() for w in want)
             l2 = max(((a - b).norm().item() / max(b.norm().item(),
-                                                  1e-6 * top2), n)
+                                                  zero_rel * top2), n)
                      for n, a, b in zip(names, got, want))
             mx = max(((a - b).abs().max().item()
-                      / max(b.abs().max().item(), 1e-6 * topm), n)
+                      / max(b.abs().max().item(), zero_rel * topm), n)
                      for n, a, b in zip(names, got, want))
+            l2_all = math.sqrt(sum((a - b).norm().item() ** 2
+                                   for a, b in zip(got, want))
+                               / sum(b.norm().item() ** 2 for b in want))
             out[f"{what} {key}"] = {"l2": l2[0], "l2_at": l2[1],
-                                    "max": mx[0], "max_at": mx[1]}
+                                    "l2_all": l2_all, "max": mx[0],
+                                    "max_at": mx[1]}
     return out
 
 
-def train_card_vs_cpu(fb, dev) -> dict:
-    """One reg step (R1 + path length) of a 64px model on the card and on
-    the CPU, same weights and draws.  The checked card run computes its
-    convolutions without cuDNN, whose float32 algorithms (FFT among them)
-    put the discriminator's bias gradients ~2e-4 off the CPU's; the same
-    step with cuDNN, and with the plain version in place of the kernel,
-    is reported beside it.
+# per compute type, the card-vs-CPU step's rounding floor and limits: the
+# inputs' nudge (latents signed per element or not), the relative limit
+# of a metric (plus an absolute one) and of a gradient where the floor is
+# smaller, the share of its optimizer's largest that a gradient 0 in
+# exact arithmetic is measured against, and whether the checked card run
+# uses cuDNN (the other setting is reported beside it)
+CARD_VS_CPU = {
+    "float32": dict(nudge=2.0 ** -22, signed=False, rel=1e-4, abs=1e-6,
+                    zero_rel=1e-6, cudnn=False),
+    "bfloat16": dict(nudge=2.0 ** -8, signed=True, rel=2.0 ** -7, abs=0.0,
+                     zero_rel=2.0 ** -8, cudnn=True),
+}
+
+
+def train_card_vs_cpu(fb, dev, dtype: str = "float32") -> dict:
+    """One reg step (R1 + path length) of a 64px model computing in
+    ``dtype`` on the card and on the CPU, same weights and draws.  In
+    float32 the checked card run computes its convolutions without
+    cuDNN, whose float32 algorithms (FFT among them) put the
+    discriminator's bias gradients ~2e-4 off the CPU's; in bfloat16 with
+    cuDNN, as training runs it.  The step with the other cuDNN setting,
+    and with the plain version in place of the kernel, is reported
+    beside it.
 
     At lr 0, so that every phase on both devices starts from the same
     weights: at lr > 0 Adam moves each parameter by about lr whatever the
     size of its gradient, so a gradient near 0 whose sign differs sends
     the next phase off from other weights.
 
-    The limits are set by what float32 rounding alone does to this step:
-    a second CPU step whose latents and real images are scaled by
-    1 + 2**-22 (one or two float32 ulps).  The path-length gradient is so
-    sensitive that this moves some of its tensors by ~0.5% in the L2
-    norm (a leaky ReLU whose input lies within rounding of 0 changes its
-    slope), so 1e-4 alone is out of reach for any two implementations.
-    Each metric and, per optimizer and moment, the worst per-tensor L2
-    error of the card must lie within 3x that rounding floor, or 1e-4
-    relative where the floor is smaller."""
+    The limits are set by what rounding alone does to this step: a
+    second CPU step whose real images are scaled by 1 + nudge and whose
+    latents are too, uniformly in float32 (2**-22, one or two ulps) and
+    by 1 +- nudge with a seeded sign per element in bfloat16 (2**-8, one
+    ulp; the mapping's PixelNorm cancels a uniform scale).  The
+    path-length gradient is so sensitive that in float32 this moves some
+    of its tensors by ~0.5% in the L2 norm (a leaky ReLU whose input lies
+    within rounding of 0 changes its slope), so 1e-4 alone is out of
+    reach for any two implementations.  Each metric and, per optimizer
+    and moment, the worst per-tensor L2 error of the card must lie within
+    3x that rounding floor, or the type's relative limit where the floor
+    is smaller; in bfloat16 also the L2 error over all of the
+    optimizer's tensors at once (``tests/test_torch_port_train_bf16.py``
+    holds the port's CPU step to the JAX package's the same way)."""
     from transeditor_tpu_torch.config import ModelConfig, TrainConfig
     from transeditor_tpu_torch.ops import modconv
     from transeditor_tpu_torch.train.gan import init_state, make_train_step
 
-    cfg = ModelConfig(size=64, max_channels=128, n_trans=2)
+    lim = CARD_VS_CPU[dtype]
+    tag = "" if dtype == "float32" else "5c "
+    cfg = ModelConfig(size=64, max_channels=128, n_trans=2, dtype=dtype)
     tcfg = TrainConfig(batch_size=4, lr=0.0)
     g = torch.Generator().manual_seed(7)
 
@@ -1085,22 +1152,26 @@ def train_card_vs_cpu(fb, dev) -> dict:
         return torch.randn((b, 64, 64, 3), generator=g) / 64
     draws = {"d": zp(4), "g": zp(4), "path": [*zp(2), noise(2)],
              "spatial": [*zp(2), noise(2)]}
+    signs = {k: [torch.randint(0, 2, t.shape, generator=g) * 2.0 - 1.0
+                 if lim["signed"] else torch.ones(()) for t in v[:2]]
+             for k, v in draws.items()}
     real = torch.from_numpy(synthetic_batches(1, 4, 64, seed=8)[0])
     real = real.float() / 127.5 - 1.0
 
-    def run(d, scale=1.0):
+    def run(d, nudge=0.0):
         state = init_state(cfg, tcfg, seed=3, device=d)
         step = make_train_step(cfg, tcfg, device=d)
-        scaled = {k: [t * scale for t in v[:2]] + v[2:]
-                  for k, v in draws.items()}
-        return step(state, real * scale, torch.Generator(d), do_d_reg=True,
-                    do_g_reg=True, draws=scaled)
+        nudged = {k: [t * (1 + nudge * s) for t, s in zip(v[:2], signs[k])]
+                  + v[2:] for k, v in draws.items()}
+        return step(state, real * (1 + nudge), torch.Generator(d),
+                    do_d_reg=True, do_g_reg=True, draws=nudged)
 
     cpu, m_cpu = run(torch.device("cpu"))
-    nudged, m_nudged = run(torch.device("cpu"), 1.0 + 2.0 ** -22)
-    with_cudnn, _ = run(dev)
-    torch.backends.cudnn.enabled = False
+    nudged, m_nudged = run(torch.device("cpu"), lim["nudge"])
+    torch.backends.cudnn.enabled = not lim["cudnn"]
     try:
+        other, _ = run(dev)
+        torch.backends.cudnn.enabled = lim["cudnn"]
         fb.launches.reset()
         card, m_card = run(dev)
         torch.cuda.synchronize()
@@ -1112,31 +1183,216 @@ def train_card_vs_cpu(fb, dev) -> dict:
         torch.backends.cudnn.enabled = True
     metrics = {k: {"card": float(m_card[k]), "cpu": float(m_cpu[k]),
                    "nudged_cpu": float(m_nudged[k])} for k in m_cpu}
-    errs = {"kernel": _grad_errors(card, cpu),
-            "kernel_with_cudnn": _grad_errors(with_cudnn, cpu),
-            "plain": _grad_errors(plain, cpu),
-            "rounding_floor": _grad_errors(nudged, cpu)}
+    on, off = ("with", "without") if lim["cudnn"] else ("without", "with")
+    errs = {"kernel": _grad_errors(card, cpu, lim["zero_rel"]),
+            f"kernel_{off}_cudnn": _grad_errors(other, cpu, lim["zero_rel"]),
+            "plain": _grad_errors(plain, cpu, lim["zero_rel"]),
+            "rounding_floor": _grad_errors(nudged, cpu, lim["zero_rel"])}
 
     def fmt(e):
-        return {k: f"l2 {v['l2']:.2e} ({v['l2_at']}), max {v['max']:.2e} "
-                   f"({v['max_at']})" for k, v in e.items()}
-    print(f"train step card vs CPU (64px, R1 + path length, batch 4, lr 0): "
-          f"metrics {metrics}; gradients, worst per tensor: kernel, no "
-          f"cuDNN {fmt(errs['kernel'])}; kernel with cuDNN (not checked) "
-          f"{fmt(errs['kernel_with_cudnn'])}; the plain version on the "
-          f"card, no cuDNN {fmt(errs['plain'])}; rounding floor (CPU, inputs x (1 + "
-          f"2**-22)) {fmt(errs['rounding_floor'])}; launches {roles}",
-          flush=True)
+        return {k: f"l2 {v['l2']:.2e} ({v['l2_at']}), all {v['l2_all']:.2e}"
+                   f", max {v['max']:.2e} ({v['max_at']})"
+                for k, v in e.items()}
+    print(f"{tag}train step card vs CPU (64px {dtype}, R1 + path length, "
+          f"batch 4, lr 0): metrics {metrics}; gradients, worst per tensor "
+          f"and all tensors: kernel, {on} cuDNN {fmt(errs['kernel'])}; "
+          f"kernel {off} cuDNN (not checked) "
+          f"{fmt(errs[f'kernel_{off}_cudnn'])}; the plain version on the "
+          f"card, {on} cuDNN {fmt(errs['plain'])}; rounding floor (CPU, "
+          f"inputs x (1 + {lim['nudge']:.3g}), signed "
+          f"{lim['signed']}) {fmt(errs['rounding_floor'])}; launches "
+          f"{roles}", flush=True)
     check(all(roles.get(r) for r in ("forward", "adjoint", "recompute")),
-          f"card-vs-CPU step launches by role {roles}")
+          f"{tag}card-vs-CPU step launches by role {roles}")
     for k, m in metrics.items():
         err, floor = abs(m["card"] - m["cpu"]), abs(m["nudged_cpu"] - m["cpu"])
-        check(err <= max(3 * floor, 1e-4 * abs(m["cpu"]) + 1e-6),
-              f"metric {k}: {m}")
-    for tag, e in errs["kernel"].items():
-        limit = max(3 * errs["rounding_floor"][tag]["l2"], 1e-4)
-        check(e["l2"] <= limit, f"{tag} {e['l2_at']}: L2 {e['l2']} > {limit}")
+        check(err <= max(3 * floor, lim["rel"] * abs(m["cpu"]) + lim["abs"]),
+              f"{tag}metric {k}: {m}")
+    keys = ("l2",) if dtype == "float32" else ("l2", "l2_all")
+    for what, e in errs["kernel"].items():
+        for key in keys:
+            limit = max(3 * errs["rounding_floor"][what][key], lim["rel"])
+            check(e[key] <= limit, f"{tag}{what} {key} {e['l2_at']}: "
+                                   f"{e[key]} > {limit}")
     return {"metrics": metrics, "grad_errors": errs}
+
+
+# ---------------------------------------------------------------- phase 5c
+
+BENCH_VARIANTS = {"plain": (False, False), "dreg": (True, False),
+                  "greg": (False, True), "fullreg": (True, True)}
+F32_OF_BENCH = {"plain": "plain", "dreg": "r1", "greg": "path",
+                "fullreg": "r1+path"}       # 5b's names of the same steps
+# the type of each role's launches in a bfloat16 step: the forward runs
+# in the compute type; the backward (``_FusedBlur4.backward``) works in
+# float32 throughout and rounds each gradient once to its input's type,
+# as autograd of the plain version does, so its adjoint and recompute
+# launches take float32 operands
+BF16_STEP_DTYPES = {"forward": "bfloat16", "adjoint": "float32",
+                    "recompute": "float32"}
+
+
+@contextlib.contextmanager
+def launch_dtypes(fb):
+    """{role: {dtype: launches}} of the kernel while entered, read from
+    the operands of each ``fused_blur.launch`` call (one call is one
+    launch, the one ``fb.launches`` counts)."""
+    real, seen = fb.launch, {}
+
+    def tallying(plan, x, taps, scale=None, bias=None, act=False,
+                 role="forward"):
+        by = seen.setdefault(role, {})
+        name = str(x.dtype).replace("torch.", "")
+        by[name] = by.get(name, 0) + 1
+        return real(plan, x, taps, scale, bias, act, role)
+
+    fb.launch = tallying
+    try:
+        yield seen
+    finally:
+        fb.launch = real
+
+
+def _replay_step(fb, step, state, real, rng, **flags):
+    """One train step in which every launch is held, on the spot, against
+    ``fused_blur4_plain`` on its own operands: a bfloat16 output within 2
+    bf16 ulps beyond 1e-5 (2a's limit), a float32 one within 1e-5 of the
+    plain output's largest magnitude (7b's).  Returns (state, metrics,
+    {dtype: (launches, worst error)})."""
+    blur, worst = fb._blur, {}
+
+    def replaying(x, taps, pad, scale, bias, act, role):
+        y = blur(x, taps, pad, scale, bias, act, role)
+        with torch.no_grad():
+            want = fb.fused_blur4_plain(x, taps, pad, scale, bias,
+                                        act).float()
+            err = (y.float() - want).abs()
+            name = str(y.dtype).replace("torch.", "")
+            tag = f"5c {name} {role} launch {tuple(x.shape)}"
+            if y.dtype == torch.bfloat16:
+                check(bool((err <= 2 * bf16_ulp(want) + 1e-5).all()),
+                      f"{tag} beyond 2 bf16 ulps")
+                e = err.max().item()
+            else:
+                e = (err.max() / want.abs().max().clamp_min(1e-30)).item()
+                check(e <= 1e-5, f"{tag}: {e} of the plain output's largest")
+            n, w = worst.get(name, (0, 0.0))
+            worst[name] = (n + 1, max(w, e))
+        return y
+
+    fb._blur = replaying
+    try:
+        state, m = step(state, real, rng, **flags)
+        torch.cuda.synchronize()
+    finally:
+        fb._blur = blur
+    return state, m, worst
+
+
+def train_bf16_phase(fb, dev, out_root: pathlib.Path, f32_variants: dict,
+                     **cfg_kw) -> dict:
+    """5c (a main path, counted): ``train()`` on the full-width 256px
+    ``ModelConfig(dtype="bfloat16")`` (the JAX package's training and
+    bench configuration) at batch 16, with 5b's variants and step
+    pattern; every step finite, launches by role, path and type (the
+    forward's bf16, the backward's float32: ``BF16_STEP_DTYPES``), all on
+    the TMA path.  Then one R1 + path step with each launch replayed
+    through the plain version, and ms per step by bench.py's recipe
+    (plain / dreg / greg / fullreg, best of 3 x 5 steps after a warm
+    one) beside 5b's float32 figures, and the peak memory.  ``cfg_kw``
+    narrows the model for a CPU rehearsal; none on the card."""
+    from transeditor_tpu_torch.config import ModelConfig, TrainConfig
+    from transeditor_tpu_torch.train.gan import init_state, make_train_step
+    from transeditor_tpu_torch.train.loop import train
+
+    cfg = ModelConfig(dtype="bfloat16", **cfg_kw)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, d_reg_every=2, g_reg_every=3,
+                       n_sample=16, sample_every=4, checkpoint_every=1000)
+    state = init_state(cfg, tcfg, seed=0, device=dev)
+    batches = synthetic_batches(5, TRAIN_BATCH, cfg.size)
+    run = dict(out_dir=str(out_root), exp_name="train_bf16", state=state,
+               device=dev, log_every=1)
+
+    torch.cuda.synchronize()
+    with launch_dtypes(fb) as dtypes:
+        fb.launches.reset()                  # the main path starts here
+        t0 = time.perf_counter()
+        state = train(cfg, tcfg, iter(batches[:4]), start_step=2,
+                      max_steps=4, **run)
+        run["state"] = state
+        state = train(cfg, dataclasses.replace(tcfg, spatial_regu=True),
+                      iter(batches[4:]), start_step=6, max_steps=1, **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fb.launches.by_role_path     # ... and ends here
+        by_dtype = {r: dict(v) for r, v in dtypes.items()}
+
+    log = out_root / "train_bf16" / "log" / "metrics.jsonl"
+    lines = [json.loads(s) for s in log.read_text().splitlines()]
+    check([r["step"] for r in lines] == [2, 3, 4, 5, 6],
+          f"5c logged steps {[r['step'] for r in lines]}")
+    for r in lines:
+        check(all(np.isfinite(v) for v in r.values()), f"5c step {r}")
+        i = r["step"]
+        check((r["r1"] > 0) == (i % 2 == 0), f"5c r1 at step {i}: {r['r1']}")
+        check((r["path_length"] > 0) == (i % 3 == 0),
+              f"5c path length at step {i}: {r['path_length']}")
+        check((r["spatial_path_length"] > 0) == (i == 6),
+              f"5c spatial path length at step {i}")
+    paths = {p for by in counts.values() for p in by}
+    check(paths == {"tma"}, f"5c launches by role and path {counts}")
+    check(all(counts.get(r) for r in ("forward", "adjoint", "recompute")),
+          f"5c launches by role {counts}")
+    check({r: sum(v.values()) for r, v in by_dtype.items()}
+          == {r: sum(v.values()) for r, v in counts.items()},
+          f"5c launches by type {by_dtype} against {counts}")
+    check(all(set(v) == {BF16_STEP_DTYPES[r]} for r, v in by_dtype.items()),
+          f"5c launches by role and type {by_dtype}")
+    print(f"5c train: {cfg.size}px bf16 batch {TRAIN_BATCH}, steps 2-6 "
+          f"through train() in {wall:.2f} s; losses finite; fused_blur4 "
+          f"launches by role and path {counts}, by role and type "
+          f"{by_dtype}", flush=True)
+    for r in lines:
+        print(f"  step {r['step']}: d {r['d']:.4f} g {r['g']:.4f} r1 "
+              f"{r['r1']:.4f} path {r['path']:.4f} path_length "
+              f"{r['path_length']:.4f} spatial_path_length "
+              f"{r['spatial_path_length']:.4f}", flush=True)
+
+    step = make_train_step(cfg, tcfg, device=dev)
+    rng = torch.Generator(dev).manual_seed(1)
+    real = torch.from_numpy(batches[0]).to(dev)
+    state, m, replay = _replay_step(fb, step, state, real, rng,
+                                    do_d_reg=True, do_g_reg=True)
+    check(all(bool(torch.isfinite(v)) for v in m.values()), f"5c replay {m}")
+    check(set(replay) == {"bfloat16", "float32"}, f"5c replayed {replay}")
+    print(f"5c one R1 + path step's launches replayed through the plain "
+          f"version: {replay} (launches, worst error: bf16 absolute, "
+          f"within 2 ulps beyond 1e-5; float32 of the largest, limit "
+          f"1e-5)", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bench = {}
+    for name, (dr, gr) in BENCH_VARIANTS.items():
+        flags = dict(do_d_reg=dr, do_g_reg=gr)
+        state, m = step(state, real, rng, **flags)          # warm
+        state, best, m = bench_ms(step, state, real, rng, flags)
+        check(all(bool(torch.isfinite(v)) for v in m.values()),
+              f"5c {name}: {m}")
+        f32 = f32_variants[F32_OF_BENCH[name]]["ms"]
+        bench[name] = {"bf16_ms": best, "f32_5b_ms": f32}
+        print(f"5c train step {name}: bf16 {best:.1f} ms; 5b float32 "
+              f"{F32_OF_BENCH[name]} {f32:.1f} ms (each the best of "
+              f"{BENCH_REPS} x {BENCH_STEPS}); bf16 / f32 {best / f32:.3f}",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"5c train bf16: peak memory allocated {peak / 2**30:.2f} GiB",
+          flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return {"steps_s": wall, "main_launches": counts,
+            "launch_dtypes": by_dtype, "replay": replay, "bench": bench,
+            "peak_bytes": peak, "losses": lines}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -5154,6 +5410,21 @@ def main() -> int:
         shutil.rmtree(out_root, ignore_errors=True)
     trained["card_vs_cpu"] = train_card_vs_cpu(fb, dev)
     train_counts = trained["variants"]   # per step, by role and path
+    t5c = time.time()
+    bf16_root = pathlib.Path(__file__).resolve().parent / "build" / \
+        "smoke_bf16"
+    shutil.rmtree(bf16_root, ignore_errors=True)
+    try:
+        trained_bf16 = train_bf16_phase(fb, dev, bf16_root,
+                                        trained["variants"])
+    finally:
+        shutil.rmtree(bf16_root, ignore_errors=True)
+    trained_bf16["backward_shapes"] = backward_times(fb, dev,
+                                                     torch.bfloat16)
+    trained_bf16["card_vs_cpu"] = train_card_vs_cpu(fb, dev, "bfloat16")
+    torch.cuda.empty_cache()
+    trained_bf16["phase_s"] = time.time() - t5c
+    print(f"phase 5c: {trained_bf16['phase_s']:.1f} s on {card}", flush=True)
 
     try:
         cli = {"data": data_phase(out_root / "data", 256, TRAIN_BATCH)}
@@ -5268,9 +5539,10 @@ def main() -> int:
         "source": "transeditor_tpu_torch/csrc/fused_blur4.cu",
         "replaces": "transeditor_tpu/ops/pallas_blur.py:131",
         # the main paths, each counted from 0: serving (phase 4),
-        # training (5b), the CLI's training (6b, 6f-2), serving its state
-        # (6d)
+        # training (5b, 5c), the CLI's training (6b, 6f-2), serving its
+        # state (6d)
         "launches": sum(serve_paths.values()) + total(trained["main_launches"])
+        + total(trained_bf16["main_launches"])
         + total(cli["train"]["launches"]) + total(cli["forms"]["launches"])
         + total(projected["launches"])
         + total(projected["cli"]["launches"])
@@ -5285,6 +5557,13 @@ def main() -> int:
         + total(meshed["fsdp"]["launches"]),
         "path_launches": serve_paths,
         "train_launches": trained["main_launches"],
+        # 5c, from 0: bf16 training, by role and path and by role and
+        # type (the forward's bf16, the backward's float32)
+        "train_bf16_launches": trained_bf16["main_launches"],
+        "train_bf16_launch_dtypes": trained_bf16["launch_dtypes"],
+        # 5c: one bf16 R1 + path step's launches replayed through the
+        # plain version, by type: (launches, worst error)
+        "train_bf16_launch_errors": trained_bf16["replay"],
         "cli_train_launches": cli["train"]["launches"],
         # 6f-2, from 0: two steps on the LMDB of the image-form fixtures
         "forms_train_launches": cli["forms"]["launches"],
@@ -5333,6 +5612,7 @@ def main() -> int:
                                     for k, v in train_counts.items()},
         "max_abs_err": max(errs["max_err_f32"], errs["max_err_bf16"],
                            grad_errs["max_abs_err"],
+                           trained_bf16["replay"]["bfloat16"][1],
                            coached["kernel_vs_plain"]["max_abs_err"],
                            edited["strips"]["replay"]["f32_max_abs"],
                            metrics["kernel_vs_plain"]["f32_max_abs"],
@@ -5372,11 +5652,22 @@ def main() -> int:
         "recompute_bound_ms": summed("recompute_bound_ms"),
         "forward_f32_ms": summed("forward_ms"),
         "forward_f32_bound_ms": summed("forward_bound_ms"),
+        # 5c: bf16, batch 16, six main-path shapes summed: the launches
+        # as a bf16 step makes them (the forward in bf16; the adjoint and
+        # recompute on float32 operands, the adjoint's scale bf16) by
+        # graph replay, the composed backward on bf16 leaves by events
+        "bf16_b16": {k: sum(r[k] for r in trained_bf16["backward_shapes"])
+                     for k in ("forward_ms", "forward_bound_ms",
+                               "adjoint_ms", "adjoint_bound_ms",
+                               "recompute_ms", "recompute_bound_ms",
+                               "backward_ms", "backward_bound_ms",
+                               "plain_backward_ms")},
         "backward_errors": grad_errs,
         "backward_shapes": brows,
     }
     print(json.dumps({"generator": gen}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
+    print(json.dumps({"train_bf16": trained_bf16}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"project": projected}), flush=True)
     print(json.dumps({"coach": coached}), flush=True)

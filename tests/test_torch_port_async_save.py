@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_encoder_oracle import worker_threads
 from transeditor_tpu_torch.config import ModelConfig, TrainConfig
 from transeditor_tpu_torch.io import checkpoint
 from transeditor_tpu_torch.io.checkpoint import (save_train_state,
@@ -27,17 +26,12 @@ from transeditor_tpu_torch.io.checkpoint import (save_train_state,
 from transeditor_tpu_torch.parallel import multihost
 from transeditor_tpu_torch.train import loop
 from transeditor_tpu_torch.train.gan import init_state, make_train_step
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 CFG = ModelConfig(size=16, style_dim=32, param_dim=32, max_channels=32,
                   n_trans=1)
 TCFG = TrainConfig(batch_size=4, d_reg_every=2, g_reg_every=2, n_sample=4,
                    sample_every=100, checkpoint_every=2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with worker_threads():
-        yield
 
 
 def _batches(n, seed=0):

@@ -22,6 +22,7 @@ from PIL import Image
 from transeditor_tpu.data.dataset import ImageFolderSource as JaxFolder
 from transeditor_tpu_torch.data.dataset import ImageFolderSource
 from transeditor_tpu_torch.utils.image import load_bmp, load_image
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 
 def _pack_indices(idx: np.ndarray, bpp: int) -> bytes:

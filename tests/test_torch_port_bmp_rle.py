@@ -31,6 +31,7 @@ import pytest
 from PIL import Image
 
 from transeditor_tpu_torch.utils.image import load_bmp, load_image
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "transeditor_tpu_torch"

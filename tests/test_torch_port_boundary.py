@@ -20,9 +20,9 @@ import torch
 
 from transeditor_tpu.edit.boundary import train_boundary as jax_train
 
-import torch_port_edit_oracle as eo
 from transeditor_tpu_torch.edit import boundary as tb
 from transeditor_tpu_torch.edit.linear_svc import fit_linear_svc
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 COS_GAP = 1e-6
 
@@ -30,12 +30,6 @@ COS_GAP = 1e-6
 PROBLEMS = [(400, 512, 0.25, None, 0),
             (1000, 8192, 150, None, 1),
             (600, 1024, 0.2, -1.0, 2)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with eo.worker_threads():
-        yield
 
 
 def _problem(n, d, invalid, seed):

@@ -28,15 +28,10 @@ from transeditor_tpu_torch.edit import celebahq_classifier as tceleb
 from transeditor_tpu_torch.edit import classifiers as tcls
 from transeditor_tpu_torch.io import torch_export as tx
 from transeditor_tpu_torch.zoo.resnet import ResNet18Features
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 REL = 1e-4
 PROB_ATOL = 2e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with eo.worker_threads():
-        yield
 
 
 def _np(x):

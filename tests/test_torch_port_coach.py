@@ -57,6 +57,8 @@ from transeditor_tpu_torch.models import psp as tp
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.train import coach as tc
 from transeditor_tpu_torch.zoo.lpips import LPIPS, load_lpips_params
+from torch_port_disk import small_tmp_path  # noqa: F401
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 DECODER = dict(size=64, style_dim=orc.HEAD, param_dim=orc.HEAD,
                max_channels=32, n_trans=1)
@@ -68,12 +70,6 @@ STATS_TOL = 1e-5
 OUT_REL = 1e-5
 ALEX = [(0, 64, 3, 11), (3, 192, 64, 5), (6, 384, 192, 3), (8, 256, 384, 3),
         (10, 256, 256, 3)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with orc.worker_threads():
-        yield
 
 
 def _alex_sd(seed=7):
@@ -237,7 +233,7 @@ def test_fake_step_decodes_only_its_codes(monkeypatch):
     assert calls == [False]
 
 
-def test_coach_checkpoint_round_trip(tmp_path):
+def test_coach_checkpoint_round_trip(small_tmp_path):
     """``save_coach_state`` / ``restore_coach_state``: a restored state
     (encoder with its BN buffers, Ranger state, step, best validation
     loss) continues exactly as the saved one does; an orbax directory,
@@ -249,7 +245,7 @@ def test_coach_checkpoint_round_trip(tmp_path):
     real = torch.from_numpy(orc.images(1))
     state, _, _ = ptrain(state, real)
     state.best_val_loss = 1.5
-    path = save_coach_state(str(tmp_path / "ckpt_000001.pt"), state)
+    path = save_coach_state(str(small_tmp_path / "ckpt_000001.pt"), state)
     _, fresh, *_ = _states(2)
     fresh = restore_coach_state(path, fresh)
     assert fresh.step == 1 and fresh.best_val_loss == 1.5
@@ -260,9 +256,9 @@ def test_coach_checkpoint_round_trip(tmp_path):
         ptrain(s, real)
     for a, b in zip(state.encoder.parameters(), fresh.encoder.parameters()):
         assert torch.equal(a, b)
-    (tmp_path / "best_model").mkdir()
+    (small_tmp_path / "best_model").mkdir()
     with pytest.raises(ValueError, match="orbax"):
-        restore_coach_state(str(tmp_path / "best_model"), fresh)
+        restore_coach_state(str(small_tmp_path / "best_model"), fresh)
 
 
 # ------------------------------------------------------------ 256px pieces

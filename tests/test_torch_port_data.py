@@ -32,6 +32,7 @@ from transeditor_tpu_torch.data.lmdb_writer import (write_image_dataset,
                                                     write_lmdb)
 from transeditor_tpu_torch.utils.image import (load_image, load_png,
                                                resize_lanczos, save_png)
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 
 def _small():

@@ -31,6 +31,7 @@ from transeditor_tpu_torch.models.discriminator import (Discriminator,
                                                         minibatch_stddev)
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.train import losses
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 SMALL = dict(size=16, style_dim=32, param_dim=32, max_channels=32, n_trans=1)
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -19,20 +19,14 @@ from transeditor_tpu.metrics import evaluator as jev
 from transeditor_tpu.metrics import inception as ji
 
 import torch_port_metrics_oracle as mo
-from torch_port_encoder_oracle import worker_threads
 from transeditor_tpu_torch.metrics import evaluator as tev
 from transeditor_tpu_torch.metrics import inception as ti
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 TINY = dict(size=32, style_dim=32, param_dim=32, max_channels=32, n_trans=1)
 DIV_RTOL = 1e-5
 PPL_RTOL = 2e-2
 STATS_REL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with worker_threads():
-        yield
 
 
 @pytest.fixture(scope="module")

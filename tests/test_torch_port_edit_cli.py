@@ -31,6 +31,7 @@ import torch
 from transeditor_tpu.cli.edit import main as jax_edit
 from transeditor_tpu.cli.edit_eval import main as jax_edit_eval
 
+import torch_port_disk as disk
 import torch_port_edit_oracle as eo
 import torch_port_encoder_oracle as orc
 import torch_port_metrics_oracle as mo
@@ -39,17 +40,13 @@ from transeditor_tpu_torch.cli import edit_eval as cli_eval
 from transeditor_tpu_torch.config import ModelConfig
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.utils.image import load_png, save_png
+from torch_port_disk import small_tmp_path  # noqa: F401
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 SIZE = 16
 MODEL = ["--size", str(SIZE), "--num_trans", "1", "--dtype", "float32"]
 SCORE_ATOL = 1e-3
 _SCORE_RE = re.compile(r"_(-?\d+)\.png$")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with eo.worker_threads():
-        yield
 
 
 @pytest.fixture(scope="module")
@@ -68,10 +65,11 @@ def assets(tmp_path_factory):
         bounds[k] = b / np.linalg.norm(b)
     with eo.narrow_celebahq():
         celeb = eo.save_sd(root / "smiling.pth", eo.celebahq_sd(1))
-    return {"g": str(root / "g.pt"), "z": str(root / "encoded_z.npy"),
-            "p": str(root / "encoded_p.npy"), "bounds": bounds,
-            "pose": eo.save_sd(root / "pose.pth", eo.pose_sd(2)),
-            "smiling": celeb}
+    yield {"g": str(root / "g.pt"), "z": str(root / "encoded_z.npy"),
+           "p": str(root / "encoded_p.npy"), "bounds": bounds,
+           "pose": eo.save_sd(root / "pose.pth", eo.pose_sd(2)),
+           "smiling": celeb}
+    disk.tidy(root)
 
 
 def _tree(root):
@@ -180,8 +178,8 @@ def test_edit_eval_matches_jax_on_the_same_strips(assets, inversion_runs):
     assert abs(got["boundary_cosine"][k] - v) < 1e-5
 
 
-def test_edit_eval_arcface_matches_jax(tmp_path):
-    d = tmp_path / "strips" / "z_plus"
+def test_edit_eval_arcface_matches_jax(small_tmp_path):
+    d = small_tmp_path / "strips" / "z_plus"
     d.mkdir(parents=True)
     rng = np.random.default_rng(4)
     base = rng.integers(0, 256, (224, 224, 3)).astype(np.int16)
@@ -189,12 +187,12 @@ def test_edit_eval_arcface_matches_jax(tmp_path):
         frame = np.clip(base + rng.integers(-20, 21, base.shape), 0, 255)
         save_png(str(d / f"origin_0_edit_{j}_age_{j}.png"),
                  frame.astype(np.uint8))
-    arc = eo.save_sd(tmp_path / "ir_se50.pth", orc.arcface_sd(0))
+    arc = eo.save_sd(small_tmp_path / "ir_se50.pth", orc.arcface_sd(0))
     reports = {}
     for name, run in (("jax", jax_edit_eval), ("port", cli_eval.main)):
-        out = str(tmp_path / f"{name}.json")
-        argv = ["--strips_dir", str(tmp_path / "strips"), "--edited_attr",
-                "age", "--arcface", arc, "--out", out]
+        out = str(small_tmp_path / f"{name}.json")
+        argv = ["--strips_dir", str(small_tmp_path / "strips"),
+                "--edited_attr", "age", "--arcface", arc, "--out", out]
         run(argv + (["--device", "cpu"] if name == "port" else []))
         with open(out) as f:
             reports[name] = json.load(f)
@@ -204,25 +202,26 @@ def test_edit_eval_arcface_matches_jax(tmp_path):
     assert abs(got - want) < 1e-4
 
 
-def test_edit_eval_id_inception_matches_jax(tmp_path):
+def test_edit_eval_id_inception_matches_jax(small_tmp_path):
     """``--id_inception WEIGHTS``: the same pytorch-fid checkpoint in both
     CLIs (a random one, He-scaled: ``torch_port_metrics_oracle``), two
     spaces' 64px strips: the InceptionV3 ID similarities within 1e-5."""
     rng = np.random.default_rng(5)
     for space in ("z_plus", "p_plus"):
-        d = tmp_path / "strips" / space
+        d = small_tmp_path / "strips" / space
         d.mkdir(parents=True)
         base = rng.integers(0, 256, (64, 64, 3)).astype(np.int16)
         for j in range(3):
             frame = np.clip(base + rng.integers(-40, 41, base.shape), 0, 255)
             save_png(str(d / f"origin_0_edit_{j}_age_{j}.png"),
                      frame.astype(np.uint8))
-    inc = mo.save_sd(tmp_path / "pt_inception.pth", mo.fid_inception_sd(3))
+    inc = mo.save_sd(small_tmp_path / "pt_inception.pth",
+                     mo.fid_inception_sd(3))
     reports = {}
     for name, run in (("jax", jax_edit_eval), ("port", cli_eval.main)):
-        out = str(tmp_path / f"{name}.json")
-        argv = ["--strips_dir", str(tmp_path / "strips"), "--edited_attr",
-                "age", "--id_inception", inc, "--out", out]
+        out = str(small_tmp_path / f"{name}.json")
+        argv = ["--strips_dir", str(small_tmp_path / "strips"),
+                "--edited_attr", "age", "--id_inception", inc, "--out", out]
         run(argv + (["--device", "cpu"] if name == "port" else []))
         with open(out) as f:
             reports[name] = json.load(f)

@@ -36,6 +36,7 @@ from transeditor_tpu_torch.edit import evaluate as tev
 from transeditor_tpu_torch.edit import presets as tpre
 from transeditor_tpu_torch.edit import sweep as tsw
 from transeditor_tpu_torch.utils.image import load_png
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 JCFG = JaxConfig(**eo.TINY)
 DIM = 16 * eo.TINY["style_dim"]
@@ -43,12 +44,6 @@ CODE_REL = 1e-4
 IMG_ATOL = 5e-4
 BRIGHT_ATOL = 0.05
 PROB_ATOL = 2e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with eo.worker_threads():
-        yield
 
 
 @pytest.fixture(scope="module")

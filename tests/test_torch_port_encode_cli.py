@@ -30,6 +30,7 @@ import torch
 
 from transeditor_tpu.cli.encode import main as jax_encode
 
+import torch_port_disk as disk
 import torch_port_encoder_oracle as orc
 from transeditor_tpu_torch.cli import encode as cli_encode
 from transeditor_tpu_torch.cli import train_encoder as cli_train
@@ -39,15 +40,11 @@ from transeditor_tpu_torch.models import psp as tp
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.train import coach as tc
 from transeditor_tpu_torch.utils.image import load_png, save_png
+from torch_port_disk import small_tmp_path  # noqa: F401
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 SIZE = 64
 REL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with orc.worker_threads():
-        yield
 
 
 def _pngs(root, n, seed):
@@ -76,27 +73,28 @@ def psp_pt(tmp_path_factory):
                 rng.standard_normal((512, 16), np.float32)),
             "p_plus_latent_avg": torch.from_numpy(
                 rng.standard_normal((512, 16), np.float32))}
-    path = tmp_path_factory.mktemp("psp") / "psp.pt"
-    torch.save(ckpt, path)
-    return str(path)
+    root = tmp_path_factory.mktemp("psp")
+    torch.save(ckpt, root / "psp.pt")
+    yield str(root / "psp.pt")
+    disk.tidy(root)
 
 
-def test_encode_cli_matches_jax(psp_pt, tmp_path):
-    data = _pngs(tmp_path / "imgs", 3, seed=2)
-    dec = _decoder_pt(tmp_path / "g.pt")
+def test_encode_cli_matches_jax(psp_pt, small_tmp_path):
+    data = _pngs(small_tmp_path / "imgs", 3, seed=2)
+    dec = _decoder_pt(small_tmp_path / "g.pt")
     common = ["--decoder_ckpt", dec, "--encoder_ckpt", psp_pt,
               "--data_dir", data, "--size", str(SIZE), "--num_trans", "1",
               "--batch", "2"]
-    jax_encode(common + ["--out_dir", str(tmp_path / "jax")])
-    cli_encode.main(common + ["--out_dir", str(tmp_path / "port"),
+    jax_encode(common + ["--out_dir", str(small_tmp_path / "jax")])
+    cli_encode.main(common + ["--out_dir", str(small_tmp_path / "port"),
                               "--device", "cpu", "--save_inversions"])
     for name in ("encoded_z.npy", "encoded_p.npy"):
-        want = np.load(tmp_path / "jax" / name)
-        got = np.load(tmp_path / "port" / name)
+        want = np.load(small_tmp_path / "jax" / name)
+        got = np.load(small_tmp_path / "port" / name)
         assert got.shape == (3, 16, 512) and got.dtype == np.float32
         orc.assert_close(got, want, REL, name)
     for i in range(3):
-        img = load_png(str(tmp_path / "port" / f"inversion_{i}.png"))
+        img = load_png(str(small_tmp_path / "port" / f"inversion_{i}.png"))
         assert img.shape == (SIZE, SIZE, 3)
 
 
@@ -106,7 +104,7 @@ def test_encode_reads_no_orbax_directory(tmp_path):
         cli_encode.load_encoder(str(tmp_path / "best_model"))
 
 
-def test_train_encoder_then_encode(tmp_path, monkeypatch):
+def test_train_encoder_then_encode(small_tmp_path, monkeypatch):
     width = dict(style_dim=orc.HEAD, param_dim=orc.HEAD)
     monkeypatch.setattr(tc, "GradualStyleEncoder", functools.partial(
         tp.GradualStyleEncoder, head_channels=orc.HEAD, **orc.REDUCED))
@@ -114,10 +112,10 @@ def test_train_encoder_then_encode(tmp_path, monkeypatch):
         build = cli.model_config_from_args
         monkeypatch.setattr(cli, "model_config_from_args",
                             lambda args, build=build: build(args, **width))
-    train = _pngs(tmp_path / "train", 4, seed=3)
-    val = _pngs(tmp_path / "val", 3, seed=4)
-    dec = _decoder_pt(tmp_path / "g.pt", **width)
-    exp = tmp_path / "exp"
+    train = _pngs(small_tmp_path / "train", 4, seed=3)
+    val = _pngs(small_tmp_path / "val", 3, seed=4)
+    dec = _decoder_pt(small_tmp_path / "g.pt", **width)
+    exp = small_tmp_path / "exp"
     model = ["--size", str(SIZE), "--num_trans", "1", "--device", "cpu"]
     with pytest.warns(UserWarning) as warned:
         cli_train.main(["--ckpt", dec, "--dataset_dir", train,
@@ -139,7 +137,7 @@ def test_train_encoder_then_encode(tmp_path, monkeypatch):
     lines = (exp / "logs" / "metrics.jsonl").read_text().splitlines()
     assert len(lines) == 3          # step 0's losses, two val_loss lines
 
-    out = tmp_path / "enc"
+    out = small_tmp_path / "enc"
     cli_encode.main(["--decoder_ckpt", dec, "--encoder_ckpt",
                      str(exp / "best_model.pt"), "--data_dir", val,
                      "--out_dir", str(out), "--batch", "2", *model])

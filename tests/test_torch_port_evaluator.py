@@ -24,21 +24,15 @@ from transeditor_tpu.metrics import inception as ji
 from transeditor_tpu.zoo import backbones as jb
 
 import torch_port_metrics_oracle as mo
-from torch_port_encoder_oracle import worker_threads
 from transeditor_tpu_torch.data.dataset import ImageFolderSource
 from transeditor_tpu_torch.metrics import evaluator as tev
 from transeditor_tpu_torch.metrics import inception as ti
 from transeditor_tpu_torch.utils.image import save_png, to_uint8
 from transeditor_tpu_torch.zoo.backbones import load_vgg16_fc7
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 TINY = dict(size=32, style_dim=32, param_dim=32, max_channels=32, n_trans=1)
 STATS_REL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with worker_threads():
-        yield
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,7 @@ from transeditor_tpu_torch.io.checkpoint import save_train_state
 from transeditor_tpu_torch.models.discriminator import Discriminator
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.train.gan import TrainConfig, init_state
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 TINY = dict(size=32, style_dim=64, param_dim=64, max_channels=64, n_trans=1)
 

@@ -24,6 +24,7 @@ from transeditor_tpu.utils import face_align as jfa
 from transeditor_tpu_torch.cli import align as align_cli
 from transeditor_tpu_torch.utils import face_align as fa
 from transeditor_tpu_torch.utils.image import load_image
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 
 def landmarks(eye_l, eye_r, mouth_l, mouth_r):

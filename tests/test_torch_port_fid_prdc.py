@@ -20,6 +20,7 @@ from transeditor_tpu.metrics.prdc import compute_prdc as jax_prdc
 from transeditor_tpu_torch.metrics import evaluator as tev
 from transeditor_tpu_torch.metrics import fid as tfid
 from transeditor_tpu_torch.metrics.prdc import compute_prdc
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 FID_TOL = 1e-10
 

@@ -19,6 +19,7 @@ from transeditor_tpu.ops.pallas_blur import fused_blur4 as jax_fused_blur4
 from transeditor_tpu.ops.resample import upfirdn2d as jax_upfirdn2d
 
 from transeditor_tpu_torch.ops import fused_blur, modconv
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 TAPS = tuple((np.asarray([1., 3., 3., 1.]) / 8.0 * 2.0).tolist())  # up gain
 

@@ -25,6 +25,7 @@ from transeditor_tpu.ops.act import fused_leaky_relu as jax_lrelu
 from transeditor_tpu.ops.resample import upfirdn2d as jax_upfirdn2d
 
 from transeditor_tpu_torch.ops import fused_blur
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 TAPS = tuple((np.asarray([1., 3., 3., 1.]) / 8.0 * 2.0).tolist())  # up gain
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from transeditor_tpu_torch.ops import fused_blur as fb
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 MAIN_SHAPES = [(9, 512), (17, 512), (33, 512), (65, 512), (129, 256),
                (257, 128)]          # fused_blur4 inputs of a 256px forward

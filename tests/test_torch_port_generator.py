@@ -27,6 +27,7 @@ from transeditor_tpu_torch.io.checkpoint import load_reference_generator
 from transeditor_tpu_torch.io.torch_export import \
     generator_state_dict_from_jax
 from transeditor_tpu_torch.models.generator import Generator
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(size=32, style_dim=64, param_dim=64, max_channels=64, n_trans=2)

@@ -25,20 +25,16 @@ from transeditor_tpu.cli.img_metrics import main as jax_img_metrics
 from transeditor_tpu.metrics import paired as jpaired
 
 import torch_port_encoder_oracle as orc
+import torch_port_disk as disk
 import torch_port_metrics_oracle as mo
 from transeditor_tpu_torch.cli import img_metrics
 from transeditor_tpu_torch.metrics import paired as tpaired
 from transeditor_tpu_torch.utils.image import resize_bilinear, save_png
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 SCORE_REL = 1e-4
 RES = 256
 GT_SIZES = (300, 256, 200)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with orc.worker_threads():
-        yield
 
 
 def _smooth(rng, size):
@@ -62,9 +58,10 @@ def folders(tmp_path_factory):
         save_png(str(gt / f"{i:05d}.png"), np.asarray(
             Image.fromarray(base.astype(np.uint8)).resize((size, size),
                                                           Image.BICUBIC)))
-    return {"root": root, "res": str(res), "gt": str(gt),
-            "alex": mo.save_sd(root / "alex.pth", mo.lpips_sd("alex", 1)),
-            "arcface": mo.save_sd(root / "ir_se50.pth", orc.arcface_sd(2))}
+    yield {"root": root, "res": str(res), "gt": str(gt),
+           "alex": mo.save_sd(root / "alex.pth", mo.lpips_sd("alex", 1)),
+           "arcface": mo.save_sd(root / "ir_se50.pth", orc.arcface_sd(2))}
+    disk.tidy(root)                 # ir_se50.pth is 170 MB
 
 
 @pytest.mark.parametrize("mode", ["l2", "lpips", "id"])

@@ -22,6 +22,8 @@ from transeditor_tpu.metrics import inception as ji
 import torch_port_metrics_oracle as mo
 from transeditor_tpu_torch.io.torch_export import inception_state_dict_from_jax
 from transeditor_tpu_torch.metrics import inception as ti
+from torch_port_disk import small_tmp_path  # noqa: F401
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 FEAT_REL = 1e-5
 POOL_REL = 1e-6
@@ -83,10 +85,10 @@ def test_loader_folds_as_the_jax_porter_leaf_by_leaf(weights):
     assert all(torch.equal(from_np[k], got[k]) for k in got)
 
 
-def test_loader_reads_a_file_and_ignores_fc(weights, tmp_path):
+def test_loader_reads_a_file_and_ignores_fc(weights, small_tmp_path):
     sd, _ = weights
-    path = mo.save_sd(tmp_path / "pt_inception.pth", sd)
-    net = ti.load_fid_inception(path)
+    net = ti.load_fid_inception(mo.save_sd(small_tmp_path / "pt_inception.pth",
+                                           sd))
     assert not net.training
     assert not any(k.startswith("fc") for k in net.state_dict())
 

@@ -30,16 +30,11 @@ import torch_port_encoder_oracle as orc
 from transeditor_tpu_torch.io import torch_export as te
 from transeditor_tpu_torch.models import irse as ti
 from transeditor_tpu_torch.models import psp as tp
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 OUT_REL = 1e-5
 STATS_TOL = 1e-5
 ARCFACE = {"ir_se50": (50, True), "ir101": (100, False)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with orc.worker_threads():
-        yield
 
 
 @functools.lru_cache(maxsize=None)

@@ -44,27 +44,16 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from transeditor_tpu.data import native as jax_native
 
 from transeditor_tpu_torch.data import native
 from transeditor_tpu_torch.ops import cuda_build
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "transeditor_tpu_torch"
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """torch at 2 threads under xdist (``worker_threads`` in
-    ``torch_port_encoder_oracle.py``)."""
-    before = torch.get_num_threads()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _image(h, w, seed, noise=20):

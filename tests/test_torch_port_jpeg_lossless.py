@@ -39,6 +39,7 @@ from PIL import Image
 
 from transeditor_tpu.data import native as jax_native
 from transeditor_tpu_torch.data import native
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "image_forms"

@@ -23,6 +23,7 @@ from transeditor_tpu_torch.io.checkpoint import (checkpoint_steps,
 from transeditor_tpu_torch.train import loop
 from transeditor_tpu_torch.train.gan import init_state, make_train_step
 from transeditor_tpu_torch.utils.image import make_grid, save_png
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 CFG = ModelConfig(size=16, style_dim=32, param_dim=32, max_channels=32,
                   n_trans=1)

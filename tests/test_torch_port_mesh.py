@@ -41,7 +41,6 @@ from transeditor_tpu.parallel import mesh as jax_mesh
 
 import torch_port_dist_worker as dw
 import torch_port_mesh_worker as mw
-from torch_port_encoder_oracle import worker_threads
 from transeditor_tpu_torch.config import ModelConfig
 from transeditor_tpu_torch.io.checkpoint import restore_train_state
 from transeditor_tpu_torch.io.torch_export import (
@@ -52,17 +51,12 @@ from transeditor_tpu_torch.parallel.data_parallel import local_rows
 from transeditor_tpu_torch.parallel.mesh import (Mesh, create_mesh,
                                                  param_partition_spec)
 from transeditor_tpu_torch.train.gan import init_state, make_train_step
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC_MODEL = dict(size=16, style_dim=64, param_dim=64, max_channels=64,
                   n_trans=1)
 MESHES = [(4, 2), (8, 1), (1, 8)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with worker_threads():
-        yield
 
 
 # ------------------------------------------------- the partition rule

@@ -28,23 +28,18 @@ from transeditor_tpu.cli.calc_stats import main as jax_calc_stats
 from transeditor_tpu.cli.evaluate import main as jax_evaluate
 from transeditor_tpu.metrics import evaluator as jev
 
+import torch_port_disk as disk
 import torch_port_metrics_oracle as mo
-from torch_port_encoder_oracle import worker_threads
 from transeditor_tpu_torch.cli import calc_stats, evaluate
 from transeditor_tpu_torch.config import ModelConfig
 from transeditor_tpu_torch.metrics import evaluator as tev
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.utils.image import save_png, to_uint8
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 SIZE = 32
 MODEL = ["--size", str(SIZE), "--num_trans", "1", "--dtype", "float32"]
 STATS_REL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with worker_threads():
-        yield
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +60,7 @@ def assets(tmp_path_factory):
         img = g(z, p).image.numpy()
     for i, im in enumerate(to_uint8(img)):
         save_png(str(real / f"{i:02d}.png"), im)
-    return {
+    yield {
         "g": str(root / "g.pt"), "ckpts": str(root / "ckpts"),
         "real": str(real), "root": root,
         "inception": mo.save_sd(root / "pt_inception.pth",
@@ -74,6 +69,7 @@ def assets(tmp_path_factory):
         "vgg": mo.save_sd(root / "lpips_vgg.pth", mo.lpips_sd("vgg", 8)),
         "vgg16": mo.save_sd(root / "vgg16.pth", mo.vgg16_sd(9)),
     }
+    disk.tidy(root)                 # vgg16.pth alone is 513 MB
 
 
 def _run(main, argv):

@@ -46,6 +46,7 @@ import torch_port_dist_worker as worker
 from transeditor_tpu_torch.parallel import data_parallel, multihost
 from transeditor_tpu_torch.train.gan import (init_state, local_path_batch,
                                              make_train_step)
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -24,6 +24,7 @@ from transeditor_tpu_torch.nn.layers import (EqualConv2d, layer_norm_tokens,
                                              pixel_norm)
 from transeditor_tpu_torch.ops import act, modconv, resample
 from transeditor_tpu_torch.ops.precision import conv_precision
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 
 def _t(a):

@@ -30,6 +30,7 @@ import pytest
 from PIL import Image
 
 from transeditor_tpu_torch.utils.image import load_image, load_png
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "image_forms"

@@ -23,18 +23,12 @@ import torch
 from transeditor_tpu.metrics import ppl as jp
 
 import torch_port_metrics_oracle as mo
-from torch_port_encoder_oracle import worker_threads
 from transeditor_tpu_torch.metrics import ppl as tp
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 TINY = dict(size=32, style_dim=32, param_dim=32, max_channels=32, n_trans=1)
 COARSE_RTOL = 2e-4
 PROTOCOL_RTOL = 2e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with worker_threads():
-        yield
 
 
 @pytest.fixture(scope="module")

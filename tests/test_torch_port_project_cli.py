@@ -24,6 +24,8 @@ from transeditor_tpu.models import Generator as JaxGenerator
 
 from transeditor_tpu_torch.cli.project import main as port_main
 from transeditor_tpu_torch.utils.image import load_png, save_png
+import torch_port_disk as disk
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 SIZE, N_IMAGES = 16, 3
 FLAGS = ["--size", str(SIZE), "--num_trans", "1", "--step", "4",
@@ -49,7 +51,8 @@ def runs(tmp_path_factory):
     with pytest.warns(UserWarning, match="random LPIPS"):
         port_main([*common, "--output_dir", str(root / "port"),
                    "--device", "cpu"])
-    return root / "jax", root / "port"
+    yield root / "jax", root / "port"
+    disk.tidy(root)
 
 
 def test_the_same_files(runs):

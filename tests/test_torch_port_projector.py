@@ -44,140 +44,27 @@ What can agree, and to what:
   rounding.  Restarts that meet no kink land up to 1.4e-4 from JAX.
 """
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
-from flax.traverse_util import flatten_dict, unflatten_dict
 
 from transeditor_tpu.config import ModelConfig as JaxConfig
 from transeditor_tpu.invert import projector as jp
-from transeditor_tpu.models import Generator as JaxGenerator
-from transeditor_tpu.utils.sampling import sample_zp as jax_sample_zp
-from transeditor_tpu.zoo.backbones import VGG16_CFG
-from transeditor_tpu.zoo.lpips import LPIPS as JaxLPIPS
-from transeditor_tpu.zoo.lpips import load_lpips_params as jax_load_lpips
 
 from transeditor_tpu_torch.config import ModelConfig
 from transeditor_tpu_torch.invert import projector as tp
-from transeditor_tpu_torch.io.torch_export import \
-    generator_state_dict_from_jax
-from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.ops import fused_blur
-from transeditor_tpu_torch.zoo.lpips import LPIPS, load_lpips_params
-
-MODEL = dict(size=16, style_dim=32, param_dim=32, max_channels=32, n_trans=1)
-STATS_REL = 1e-5
-PROJ_REL = 1e-4
-STEPS = 5
-STEP_REL = 1e-5
-UNPINNED_REL = 1e-4
-RESTART_REL = 3e-4
-# LPIPS draws: (kind, numpy seed); "init" is the JAX package's LPIPS
-# initialisers, "he" He-scaled convs with N(0, 0.1) biases and heads
-DRAWS = {"init0": ("init", 0), "init1": ("init", 1), "he0": ("he", 0)}
-# the rounding-level starts of the restart test: z+ and p+ times 1 + d
-RESTARTS = (0.0, 2.0 ** -22, -(2.0 ** -22), 2.0 ** -21, -(2.0 ** -21),
-            2.0 ** -20, -(2.0 ** -20))
-
-
-def _rel(got, want, rel, name):
-    got, want = np.asarray(got), np.asarray(want)
-    assert got.shape == want.shape, (name, got.shape, want.shape)
-    top = float(np.abs(want).max())
-    err = float(np.abs(got - want).max())
-    assert err <= rel * top, f"{name}: {err} > {rel} * {top}"
-    return err / top
-
-
-def _lpips_sd(draw="init0"):
-    """A VGG LPIPS state dict in torchvision's layout, from ``DRAWS``."""
-    kind, seed = DRAWS[draw]
-    rng = np.random.default_rng(seed)
-    sd, idx, in_ch = {}, 0, 3
-    for v in VGG16_CFG:
-        if v == "M":
-            idx += 1
-            continue
-        w = rng.standard_normal((v, in_ch, 3, 3), dtype=np.float32)
-        if kind == "init":
-            w, b = 0.1 * w, np.zeros(v, np.float32)
-        else:
-            w = w * np.float32(np.sqrt(2.0 / (in_ch * 9)))
-            b = 0.1 * rng.standard_normal(v, dtype=np.float32)
-        sd[f"features.{idx}.weight"] = w
-        sd[f"features.{idx}.bias"] = b
-        idx, in_ch = idx + 2, v
-    for i, c in enumerate((64, 128, 256, 512, 512)):
-        sd[f"lin{i}.model.1.weight"] = (
-            np.ones((1, c, 1, 1), np.float32) if kind == "init" else
-            0.1 * rng.standard_normal((1, c, 1, 1), dtype=np.float32))
-    return sd
-
-
-@functools.lru_cache(maxsize=None)
-def _models(noise_injection, draw="init0"):
-    """(jax cfg, jax params, port generator, jax lpips params, port
-    lpips).  With noise injection the noise weights are set non-zero
-    (they init to 0), so the noise maps reach the image."""
-    kw = dict(MODEL, layer_noise_injection=noise_injection)
-    jcfg = JaxConfig(**kw)
-    z0 = jnp.zeros((1, 16, MODEL["style_dim"]))
-    params = JaxGenerator(jcfg).init({"params": jax.random.PRNGKey(0),
-                                      "noise": jax.random.PRNGKey(1)}, z0, z0)
-    flat = flatten_dict(jax.tree.map(np.asarray, params))
-    for i, k in enumerate(sorted(k for k in flat if k[-1] == "noise_weight")):
-        flat[k] = np.float32(0.2 + 0.1 * i)
-    params = unflatten_dict(flat)
-    cfg = ModelConfig(**kw)
-    g = Generator(cfg, device="cpu")
-    g.load_state_dict(generator_state_dict_from_jax(params, cfg),
-                      strict=True)
-    sd = _lpips_sd(draw)
-    lp = LPIPS("vgg", device="cpu")
-    lp.load_state_dict(load_lpips_params(sd, "vgg"), strict=True)
-    return jcfg, params, g, jax_load_lpips(sd, "vgg"), lp
+from torch_port_projector_oracle import (MODEL, PROJ_REL, STATS_REL,
+                                         STEPS, _models, _project_pair,
+                                         _rel, _stats, _target)
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")
 def plain():
     return _models(False)
 
-
-def _target(jcfg, params, seed=3, b=2):
-    z = jax.random.normal(jax.random.PRNGKey(seed), (b, 16, 32))
-    p = jax.random.normal(jax.random.PRNGKey(seed + 1), (b, 16, 32))
-    return np.asarray(JaxGenerator(jcfg).apply(
-        params, z, p, rngs={"noise": jax.random.PRNGKey(seed + 2)}).image)
-
-
-def _jax_draws(key, cfg, batch, steps):
-    """What JAX ``project(..., key)`` draws: the initial noise maps and
-    each step's latent noise."""
-    _, k_noise, k_opt = jax.random.split(key, 3)
-    noises = [np.asarray(jax.random.normal(jax.random.fold_in(k_noise, i), s))
-              for i, s in enumerate(jp.make_noise_shapes(cfg, batch))]
-    latent = [np.asarray(jax.random.normal(
-        jax.random.fold_in(k_opt, step), (batch, 16, MODEL["style_dim"])))
-        for step in range(steps)]
-    return noises, latent
-
-
-def _stats(jcfg, params, n=200, chunk=100):
-    key = jax.random.PRNGKey(2)
-    want = jp.estimate_latent_stats(jcfg, params, key, n_samples=n,
-                                    chunk=chunk)
-    draws = [tuple(np.asarray(t) for t in jax_sample_zp(
-        jax.random.fold_in(key, i), chunk, 16, MODEL["style_dim"]))
-        for i in range(n // chunk)]
-    return want, draws
-
-
-# ------------------------------------------------------------- pieces
 
 def test_lr_schedule_matches_jax():
     for total in (5, 1000):
@@ -249,22 +136,6 @@ def test_estimate_latent_stats_draws_from_its_seed(plain):
 
 # ------------------------------------------------------------- project
 
-def _project_pair(models, optimize_noise):
-    jcfg, params, g, jlp, lp = models
-    target = _target(jcfg, params)
-    (zm, zs, pm), _ = _stats(jcfg, params)
-    key = jax.random.PRNGKey(5)
-    pcfg_kw = dict(steps=STEPS, trace_every=1, optimize_noise=optimize_noise)
-    want = jp.project(jcfg, params, jlp, jnp.asarray(target),
-                      jp.ProjectorConfig(**pcfg_kw), key=key,
-                      stats=(zm, zs, pm))
-    noises, latent = _jax_draws(key, jcfg, target.shape[0], STEPS)
-    stats = tuple(torch.from_numpy(np.array(s)) for s in (zm, zs, pm))
-    got = tp.project(g, lp, target, tp.ProjectorConfig(**pcfg_kw),
-                     stats=stats, noises=noises, latent_noise=latent,
-                     device="cpu")
-    return got, want
-
 
 @pytest.fixture(scope="module")
 def projected(plain):
@@ -322,212 +193,6 @@ def test_five_steps_amplify_a_rounding_level_change(plain):
 
 
 # ------------------------------------------------- each step, other draws
-
-def _jax_objective(jcfg, pcfg):
-    """(decode, value_and_grad) of the JAX package's projector objective
-    (``loss_fn`` in ``transeditor_tpu/invert/projector.py``, local to its
-    ``_projector_programs``, so rebuilt here from the same pieces):
-    plus-space decode with step ``step``'s latent noise ``draw`` on z,
-    LPIPS-vgg summed over the batch, the mse and the noise regulariser.
-    ``pin``: the image the LPIPS and the mse see, exactly, while the
-    gradient flows through the generator's own decode."""
-    gen, lpips = JaxGenerator(jcfg), JaxLPIPS(net="vgg")
-
-    def decode(params, opt_vars, draw, step, z_std):
-        z = opt_vars["z"]
-        if pcfg.optimize_noise:
-            t = step / pcfg.steps
-            strength = (z_std * pcfg.noise
-                        * jnp.maximum(0.0, 1.0 - t / pcfg.noise_ramp) ** 2)
-            z = z + draw * strength[None, None]
-        return gen.apply(params, z, opt_vars["p"], map_z=False, map_p=False,
-                         noise=opt_vars.get("noises")).image.astype(
-                             jnp.float32)
-
-    def loss(opt_vars, params, lpp, tgt, draw, step, z_std, pin):
-        img = decode(params, opt_vars, draw, step, z_std)
-        img = pin + (img - jax.lax.stop_gradient(img))
-        p_loss = jnp.sum(lpips.apply(lpp, img, tgt))
-        mse = jnp.mean((img - tgt) ** 2)
-        total = p_loss + pcfg.mse_weight * mse
-        n_loss = jnp.zeros(())
-        if pcfg.optimize_noise:
-            n_loss = jp.noise_regularize(opt_vars["noises"])
-            total = total + pcfg.noise_regularize * n_loss
-        return total, (p_loss, n_loss, mse)
-
-    return jax.jit(decode), jax.jit(jax.value_and_grad(loss, has_aux=True))
-
-
-def _relu_inputs(lp, img):
-    """The inputs of the port VGG's ReLUs, up to its last tap."""
-    seen = []
-    hooks = [m.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
-             for m in lp.backbone.features if isinstance(m, torch.nn.ReLU)]
-    try:
-        with torch.no_grad():
-            lp.backbone(lp._scaled(img))
-    finally:
-        for h in hooks:
-            h.remove()
-    return seen
-
-
-def _relu_sign_changes(lp, a, b):
-    return sum(int(((x > 0) != (y > 0)).sum())
-               for x, y in zip(_relu_inputs(lp, a), _relu_inputs(lp, b)))
-
-
-def _port_step(models, target, opt_vars, adam, z_std, step, pcfg, draw,
-               pin, monkeypatch):
-    """The port's ``projector_step`` from a JAX state (``opt_vars`` and
-    optax's Adam state ``adam``), with the image pinned to ``pin`` (None:
-    the port's own).  Returns (its (perceptual, noise, mse), gradients,
-    new vars, Adam's (first, second) moments, the port's own image)."""
-    _, _, g, _, lp = models
-    names = ["z", "p"] + (["noises"] if pcfg.optimize_noise else [])
-    leaves = [ov for n in names for ov in (
-        opt_vars[n] if n == "noises" else [opt_vars[n]])]
-    mus = [m for n in names for m in (
-        adam.mu[n] if n == "noises" else [adam.mu[n]])]
-    nus = [v for n in names for v in (
-        adam.nu[n] if n == "noises" else [adam.nu[n]])]
-    tvars = [torch.tensor(np.array(v)).requires_grad_(True) for v in leaves]
-    opt = torch.optim.Adam(tvars, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
-    for v, m, n in zip(tvars, mus, nus):
-        opt.state[v] = {"step": torch.tensor(float(adam.count)),
-                        "exp_avg": torch.tensor(np.array(m)),
-                        "exp_avg_sq": torch.tensor(np.array(n))}
-    own = []
-    real = tp._decode
-
-    def decode(*args):
-        img = real(*args)
-        own.append(img.detach().clone())
-        if pin is None:
-            return img
-        return torch.from_numpy(pin) + (img - img.detach())
-
-    with monkeypatch.context() as m:
-        m.setattr(tp, "_decode", decode)
-        with tp._frozen(g, lp):
-            parts = tp.projector_step(g, lp, torch.from_numpy(target), opt,
-                                      torch.tensor(np.array(z_std)), step,
-                                      pcfg, draw)
-    return ([float(x) for x in parts], [v.grad.numpy() for v in tvars],
-            [v.detach().numpy() for v in tvars],
-            [(opt.state[v]["exp_avg"].numpy(),
-              opt.state[v]["exp_avg_sq"].numpy()) for v in tvars], own[0])
-
-
-def _flat(tree, noise):
-    return [tree["z"], tree["p"]] + (list(tree["noises"]) if noise else [])
-
-
-@pytest.mark.parametrize("optimize_noise", [False, True])
-@pytest.mark.parametrize("draw", list(DRAWS))
-def test_each_step_matches_jax_from_its_state(draw, optimize_noise,
-                                              monkeypatch):
-    """Along JAX's 5-step trajectory, each step from JAX's state: the
-    port's objective and its gradients in z+, p+ and the maps against
-    ``jax.value_and_grad`` of the JAX objective, and the port's Adam
-    update (vars, both moments) against optax's, all within STEP_REL of
-    each tensor's largest magnitude, with the LPIPS image pinned to
-    JAX's on both sides.  Unpinned, the gradients agree as closely unless
-    a VGG ReLU input changes sign between the two images.  Step 0 of the
-    JAX objective is first held to the package's own ``project`` trace
-    (a value, so no kink can part them) within 1e-6."""
-    models = _models(optimize_noise, draw)
-    jcfg, params, _, jlp, lp = models
-    target = _target(jcfg, params)
-    (zm, zs, pm), _ = _stats(jcfg, params)
-    kw = dict(steps=STEPS, trace_every=1, optimize_noise=optimize_noise)
-    jpc, pcfg = jp.ProjectorConfig(**kw), tp.ProjectorConfig(**kw)
-    decode, value_and_grad = _jax_objective(jcfg, jpc)
-    opt = jp._projector_programs(jcfg, jpc)[2]     # the package's Adam
-    key = jax.random.PRNGKey(5)
-    noises, latent = _jax_draws(key, jcfg, target.shape[0], STEPS)
-    ov = {"z": jnp.broadcast_to(zm[None], (2, *zm.shape)),
-          "p": jnp.broadcast_to(pm[None], (2, *pm.shape))}
-    if optimize_noise:
-        ov["noises"] = [jnp.asarray(n) for n in noises]
-    ost = opt.init(ov)
-    tgt = jnp.asarray(target)
-    package = jp.project(jcfg, params, jlp, tgt, jpc, key=key,
-                         stats=(zm, zs, pm))
-    for step in range(STEPS):
-        draw_k = jnp.asarray(latent[step])
-        img = decode(params, ov, draw_k, step, zs)
-        (_, parts), grads = value_and_grad(ov, params, jlp, tgt, draw_k,
-                                           step, zs, img)
-        parts = [float(x) for x in parts]
-        if step == 0:
-            for name, i in (("perceptual", 0), ("noise", 1), ("mse", 2)):
-                want = float(package[f"{name}_trace"][0])
-                assert abs(parts[i] - want) <= 1e-6 * abs(want), name
-        tag = f"{draw} step {step}"
-        got = _port_step(models, target, ov, ost[0], zs, step, pcfg,
-                         latent[step], np.asarray(img), monkeypatch)
-        np.testing.assert_allclose(got[0], parts, rtol=STEP_REL,
-                                   atol=1e-12, err_msg=tag)
-        jgrads = _flat(grads, optimize_noise)
-        for i, (a, b) in enumerate(zip(got[1], jgrads)):
-            _rel(a, b, STEP_REL, f"{tag} gradient {i}")
-        own = _port_step(models, target, ov, ost[0], zs, step, pcfg,
-                         latent[step], None, monkeypatch)
-        err = max(float(np.abs(a - np.asarray(b)).max()
-                        / np.abs(np.asarray(b)).max())
-                  for a, b in zip(own[1], jgrads))
-        if err > UNPINNED_REL:
-            flips = _relu_sign_changes(lp, own[4], torch.from_numpy(
-                np.asarray(img)))
-            assert flips > 0, f"{tag}: unpinned gradients {err} apart"
-        updates, ost = opt.update(grads, ost, ov)
-        ov = optax.apply_updates(ov, updates)
-        if optimize_noise:
-            ov = dict(ov, noises=jp.noise_normalize(ov["noises"]))
-        for i, (a, b) in enumerate(zip(got[2], _flat(ov, optimize_noise))):
-            _rel(a, b, STEP_REL, f"{tag} var {i}")
-        for i, ((m, v), jm, jv) in enumerate(zip(
-                got[3], _flat(ost[0].mu, optimize_noise),
-                _flat(ost[0].nu, optimize_noise))):
-            _rel(m, jm, STEP_REL, f"{tag} first moment {i}")
-            _rel(v, jv, STEP_REL, f"{tag} second moment {i}")
-
-
-@pytest.mark.parametrize("optimize_noise", [False, True])
-@pytest.mark.parametrize("draw", ["init1", "he0"])
-def test_free_running_gap_is_a_rounding_restart(draw, optimize_noise):
-    """Five free-running steps on the draws other than seed 0: JAX's z+,
-    p+ and image lie within RESTART_REL of their largest magnitudes of
-    the port's own 5-step result from one of RESTARTS, the same start or
-    one (z+, p+) changed by a float32 rounding or two, although JAX and
-    the port from the same start may be far further apart (seed 1
-    without latent noise, 2e-2)."""
-    models = _models(optimize_noise, draw)
-    jcfg, params, g, _, lp = models
-    got, want = _project_pair(models, optimize_noise)
-    target = _target(jcfg, params)
-    (zm, zs, pm), _ = _stats(jcfg, params)
-    noises, latent = _jax_draws(jax.random.PRNGKey(5), jcfg,
-                                target.shape[0], STEPS)
-    pcfg = tp.ProjectorConfig(steps=STEPS, optimize_noise=optimize_noise)
-    keys = ("z_plus", "p_plus", "image")
-
-    def apart(a, b):
-        return max(float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
-                   for k in keys)
-
-    gaps = {}
-    for d in RESTARTS:
-        stats = (torch.from_numpy(np.array(zm)) * (1.0 + d),
-                 torch.from_numpy(np.array(zs)),
-                 torch.from_numpy(np.array(pm)) * (1.0 + d))
-        out = tp.project(g, lp, target, pcfg, stats=stats, noises=noises,
-                         latent_noise=latent, device="cpu")
-        gaps[d] = apart(out, want)
-    assert gaps[0.0] == apart(got, want)
-    assert min(gaps.values()) <= RESTART_REL, gaps
 
 
 def test_project_freezes_the_networks_and_runs_the_blur_by_role(

@@ -33,16 +33,11 @@ from transeditor_tpu_torch.io import torch_export as te
 from transeditor_tpu_torch.io.zoo_port import load_gradual_style_encoder
 from transeditor_tpu_torch.models import psp as tp
 from transeditor_tpu_torch.models.generator import Generator
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 REL = 1e-5
 DECODER = dict(size=64, style_dim=orc.HEAD, param_dim=orc.HEAD,
                max_channels=32, n_trans=1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    with orc.worker_threads():
-        yield
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,7 +14,6 @@ int8 step, which moves a few percent of the pixels.  The port's own
 int8-vs-float32 gate is the JAX test's, > 24 dB (27.47 dB measured).
 """
 
-import os
 
 import jax
 import jax.numpy as jnp
@@ -32,21 +31,13 @@ from transeditor_tpu_torch.io.torch_export import \
     generator_state_dict_from_jax
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.ops import modconv, quant
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 SMALL = dict(size=32, max_channels=64)
 MODES = [dict(stride=1, padding=1, transpose=False),
          dict(stride=2, padding=0, transpose=False),
          dict(stride=2, padding=0, transpose=True)]
 MODE_IDS = ["stride1", "downsample", "transposed"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    before = torch.get_num_threads()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _hwio_to_oihw(w: np.ndarray) -> torch.Tensor:

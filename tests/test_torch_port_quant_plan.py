@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from transeditor_tpu_torch.ops import quant
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 # the 13 quantised convs of a 256px forward: (H, I, O, transposed)
 MAIN = [(4, 512, 512, False), (4, 512, 512, True), (8, 512, 512, False),

@@ -31,6 +31,7 @@ from transeditor_tpu_torch.io.torch_export import \
 from transeditor_tpu_torch.serve import (InferenceEngine, _pad_pow2,
                                          make_http_server)
 from transeditor_tpu_torch.train.gan import init_state
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 KW = dict(size=16, style_dim=32, param_dim=32, max_channels=32, n_trans=1)
 CFG = ModelConfig(**KW)

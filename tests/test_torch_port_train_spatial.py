@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import torch_port_train_oracle as oracle
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("space", ["p+", "p"])

@@ -11,6 +11,7 @@ tensor's largest magnitude + 1e-8, parameters and g_ema within 0.1 * lr.
 import pytest
 
 import torch_port_train_oracle as oracle
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("do_d_reg,do_g_reg", [(False, False), (True, False),

@@ -21,6 +21,7 @@ from transeditor_tpu.utils import profiling as jprofiling
 
 from transeditor_tpu_torch.utils import image, profiling
 from transeditor_tpu_torch.utils.capture import capture_fd2
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("shape,upscale", [((16, 16), 16), ((5, 7), 3),

@@ -36,17 +36,9 @@ from transeditor_tpu_torch.io.torch_export import \
 from transeditor_tpu_torch.models.generator import Generator
 from transeditor_tpu_torch.train.gan import TrainConfig, init_state
 from transeditor_tpu_torch.utils.image import colorize_heatmap
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 TINY = dict(size=32, style_dim=64, param_dim=64, max_channels=64, n_trans=2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    before = torch.get_num_threads()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def jax_draws(seed, batch, n_tokens, dim, truncation=1.0, same=False):

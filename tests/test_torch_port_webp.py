@@ -36,6 +36,7 @@ from transeditor_tpu.data import dataset as jax_dataset
 from transeditor_tpu_torch.data import dataset
 from transeditor_tpu_torch.utils import image as port_image
 from transeditor_tpu_torch.utils.image import load_image, load_webp
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "transeditor_tpu_torch"

@@ -28,6 +28,7 @@ from transeditor_tpu.zoo import lpips as jl
 
 from transeditor_tpu_torch.zoo import backbones as tb
 from transeditor_tpu_torch.zoo import lpips as tl
+from torch_port_threads import torch_worker_threads  # noqa: F401
 
 FEAT_REL = 1e-4
 LPIPS_REL = 1e-5

@@ -29,7 +29,7 @@ from transeditor_tpu.edit import classifiers as jcls
 from transeditor_tpu.models import Generator as JaxGenerator
 
 from torch_port_encoder_oracle import (assert_close, port_module, rel_err,
-                                       torch_sd, worker_threads)
+                                       torch_sd)
 from transeditor_tpu_torch.config import ModelConfig
 from transeditor_tpu_torch.edit import celebahq_classifier as tceleb
 from transeditor_tpu_torch.edit import classifiers as tcls
@@ -37,8 +37,7 @@ from transeditor_tpu_torch.io.torch_export import \
     generator_state_dict_from_jax
 from transeditor_tpu_torch.models.generator import Generator
 
-__all__ = ["assert_close", "port_module", "rel_err", "torch_sd",
-           "worker_threads"]
+__all__ = ["assert_close", "port_module", "rel_err", "torch_sd"]
 
 NARROW_PLAN = [(8, 2), (8, 2), (16, 3), (16, 3), (16, 3)]
 NARROW_NF = dict(fmap_base=256, fmap_max=16)

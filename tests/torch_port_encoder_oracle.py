@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import os
 
 import jax
 import numpy as np
@@ -35,22 +34,6 @@ HEAD = 32
 REDUCED = dict(style_count=3, coarse_ind=1, middle_ind=2, spatial_count=16)
 SEEDS = (0, 1, 2)
 RES_GAIN = 0.2
-
-
-@contextlib.contextmanager
-def worker_threads(n=2):
-    """Under pytest-xdist, torch's intra-op threads set to ``n`` while
-    entered: these files' large elementwise and convolution work on
-    torch's default of one thread per core, in every worker at once,
-    oversubscribes the machine many times over (the five files took 941
-    s together on 5 workers of 8 cores, against 124 s at 2 threads)."""
-    before = torch.get_num_threads()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(n)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(before)
 
 
 def np_tree(tree):

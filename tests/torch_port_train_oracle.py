@@ -6,7 +6,11 @@ params_d, g_ema) go through the port's weight bridge into the port's
 ``init_state`` modules; the latents and path-noise images the JAX step
 draws are derived here with the same ``jax.random.split`` sequence as
 ``transeditor_tpu/train/gan.py`` (:265, :174-175, :193-194, :322-326,
-:341-344) and handed to the port as ``draws=``.
+:341-344) and handed to the port as ``draws=``.  ``setup(dtype=...)``
+builds both in that compute type over float32 parameters
+(``ModelConfig(dtype="bfloat16")`` as the JAX package trains);
+``run_jax_nudged`` is JAX's step on inputs one rounding away, the
+rounding floor of ``test_torch_port_train_bf16.py``.
 
 Tolerances (float32 on the CPU; the two frameworks sum in other
 orders, and a regulariser's second-order gradient amplifies that):
@@ -28,6 +32,7 @@ import torch
 
 from transeditor_tpu.config import ModelConfig as JaxConfig
 from transeditor_tpu.config import TrainConfig as JaxTrainConfig
+from transeditor_tpu.train import gan as jax_gan
 from transeditor_tpu.train.gan import init_state as jax_init_state
 from transeditor_tpu.train.gan import make_train_step as jax_make_train_step
 from transeditor_tpu.train.losses import path_noise as jax_path_noise
@@ -49,14 +54,15 @@ def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def setup(seed=0, **train_kw):
-    """(jax state, jax step, port state, port step, cfg, tcfg)."""
+def setup(seed=0, dtype="float32", **train_kw):
+    """(jax state, jax step, port state, port step, cfg, tcfg), both
+    computing in ``dtype`` over float32 parameters."""
     train_kw = {"batch_size": 4, **train_kw}
-    jstate = jax_init_state(JaxConfig(**MODEL), JaxTrainConfig(**train_kw),
+    jcfg = JaxConfig(**MODEL, dtype=dtype)
+    jstate = jax_init_state(jcfg, JaxTrainConfig(**train_kw),
                             jax.random.PRNGKey(seed))
-    jstep = jax_make_train_step(JaxConfig(**MODEL),
-                                JaxTrainConfig(**train_kw))
-    cfg, tcfg = ModelConfig(**MODEL), TrainConfig(**train_kw)
+    jstep = jax_make_train_step(jcfg, JaxTrainConfig(**train_kw))
+    cfg, tcfg = ModelConfig(**MODEL, dtype=dtype), TrainConfig(**train_kw)
     state = init_state(cfg, tcfg, device="cpu")
     state.g.load_state_dict(generator_state_dict_from_jax(
         np_tree(jstate.params_g), cfg), strict=True)
@@ -109,6 +115,32 @@ def run_both(jstate, jstep, state, step, cfg, tcfg, seed=2, **flags):
     new, m = step(state, torch.from_numpy(real), torch.Generator(),
                   draws=draws, **flags)
     return jnew, jm, new, m
+
+
+def run_jax_nudged(jstate, dtype, train_kw, real, rng, nudge, **flags):
+    """JAX's step from ``jstate`` on inputs one rounding away: the real
+    images (uint8, normalised as the step does) scaled by ``1 + nudge``
+    and each latent element the step draws by ``1 +- nudge``, its sign
+    seeded (the mapping's PixelNorm cancels a uniform scale).  A fresh
+    step, traced while the draws are nudged."""
+    draw = jax_gan.sample_zp
+
+    def nudged(key, batch, *args, **kw):
+        signs = np.random.RandomState(5).choice(
+            np.float32([-1, 1]), (batch, *args[:2]))
+        return tuple(t * (1 + nudge * signs) for t in draw(key, batch,
+                                                           *args, **kw))
+
+    train_kw = {"batch_size": 4, **train_kw}
+    step = jax_make_train_step(JaxConfig(**MODEL, dtype=dtype),
+                               JaxTrainConfig(**train_kw))
+    scaled = (real.astype(np.float32) / np.float32(127.5) - np.float32(1)) \
+        * np.float32(1 + nudge)
+    jax_gan.sample_zp = nudged
+    try:
+        return step(jstate, jnp.asarray(scaled), rng, **flags)
+    finally:
+        jax_gan.sample_zp = draw
 
 
 def assert_metrics_close(jm, m):
